@@ -1,0 +1,83 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+The library is compiled on first use for ``sm_90a`` into ``build/kernels/``
+at the repository root, under a name keyed on the source's content, so an
+edited source is never served by a stale build.  Nothing here runs at import
+time: a machine without nvcc or a card can import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "hash_kernels.cu"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _U32, _U64, _I64 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint64, ctypes.c_int64
+# (value, seed-or-hash tensor or NULL, scalar seed-or-hash, out, n, stream)
+_SIGNATURES = {
+    "srt_mm_hash_int": (_P, _P, _U32, _P, _I64, _P),
+    "srt_mm_hash_long": (_P, _P, _U32, _P, _I64, _P),
+    "srt_xx_hash_fixed4": (_P, _P, _U64, _P, _I64, _P),
+    "srt_xx_hash_fixed8": (_P, _P, _U64, _P, _I64, _P),
+}
+
+#: nvcc's output of the build this process ran (ptxas register counts), or
+#: "" when the library was already built.
+build_log = ""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA "
+                       "toolkit is installed (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libhash_kernels-{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact source is already built."""
+    global build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (rc={res.returncode}):\n{res.stdout}{res.stderr}")
+    os.replace(tmp, out)
+    build_log = res.stdout + res.stderr
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernel library, with every function's C signature declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
