@@ -8,7 +8,8 @@ Run from the root of the repository on a machine with an NVIDIA H100:
 It exits non-zero, and prints no result, where there is no CUDA device or no
 port package beside it.  Otherwise it:
 
-1. builds ``csrc/hash_kernels.cu`` for sm_90a (nvcc, loaded with ctypes);
+1. builds ``csrc/hash_kernels.cu``, all five kernels, for sm_90a (nvcc,
+   loaded with ctypes);
 2. drives the main path at full size with the launch counters at 0: the
    flagship ``local_query_step`` on 2**26 rows (Spark's runtime bloom-filter
    defaults, 8388608 bits and 6 hashes), then ``murmur_hash32`` and
@@ -22,15 +23,29 @@ port package beside it.  Otherwise it:
    same CUDA tensors at 2**26 rows, with per-row and with scalar seeds;
 6. times each kernel and its plain version, and the step, with CUDA events
    (median of 20 after warm-up), and prints one JSON line per kernel and
-   seed form, a ``step`` line, the card's name and power limit, a
-   ``kernels`` line and, last, the ``ok`` line.
+   seed form and a ``step`` line;
+7. drives the column-hash path with the launch counters at 0 again: Spark's
+   ``HashPartitioning`` hash ``murmur_hash32([id16, desc, dec], seed=42)``
+   and the runtime bloom filter's ``xxhash64([desc])`` over 2**24 rows (a
+   CHAR(16) business id, a VARCHAR(100) with 10% nulls and a DECIMAL(38,2):
+   about 1.07 GB of chars), then both hashes over a ``LIST<STRING>`` and a
+   ``STRUCT<STRING, INT64>`` of 2**20 rows; ``mm_hash_bytes`` must have
+   launched from the string, the decimal and the list calls;
+8. holds every column-hash call bit for bit against the same inputs on the
+   CPU, holds ``mm_hash_bytes`` against its plain version at 2**24 rows,
+   checks the Spark string, mixed-row and string-list vectors on the card,
+   times the kernel and the two whole calls, and prints ``mm_hash_bytes``
+   lines and a ``column_hash`` line; then the card's name and power limit,
+   the ``kernels`` line (all five kernels) and, last, the ``ok`` line.
 
 Every check that fails raises, and the script then exits non-zero.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import random
 import statistics
 import subprocess
 import sys
@@ -59,6 +74,18 @@ KERNELS = {
     "xx_hash_fixed4": ("spark_rapids_jni_tpu/ops/hash_pallas.py:160",
                        torch.int32, torch.int64, 8, 33),
 }
+
+# The byte-string kernel (csrc/hash_kernels.cu mm_hash_bytes_kernel), and its
+# 32-bit instructions counted by hand from the source the same way: a word
+# costs 20 (row address 2, four byte loads 4, assembling them 6, mixK1 3,
+# mixH1 3, loop 2), a tail byte 12 (address 2, load 1, sign extension 1,
+# mixK1 3, mixH1 3, loop 2), and a row 22 beside them (loading its start,
+# length and hash 3, 64-bit index arithmetic 6, word count 1, fmix 8, store
+# 1, grid-stride loop 3).
+BYTES_REPLACES = "spark_rapids_jni_tpu/ops/hash_pallas.py:250"
+OPS_PER_WORD, OPS_PER_TAIL_BYTE, OPS_PER_ROW = 20, 12, 22
+N_COL = 1 << 24  # rows of the column-hash batch
+N_NESTED = 1 << 20  # rows of its list and struct columns
 
 # Device-memory rate by card name (NVIDIA data sheets), bytes/s.
 _MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -300,6 +327,304 @@ def time_step(cfg, keys, values):
     return step_ms, phases, peak
 
 
+# ---- the column-hash path -------------------------------------------------
+
+
+def _on(col, device):
+    """A column of the port (any class, nested ones recursively) on ``device``."""
+    fields = {}
+    for f in dataclasses.fields(col):
+        v = getattr(col, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.to(device)
+        elif f.name == "child":
+            v = _on(v, device)
+        elif f.name == "children":
+            v = tuple(_on(c, device) for c in v)
+        fields[f.name] = v
+    return dataclasses.replace(col, **fields)
+
+
+def _varchar(rng, n, max_len, null_frac, device):
+    """``n`` rows of lengths uniform in [0, max_len] and bytes uniform in
+    [0, 255] (so tails sign-extend both ways), ``null_frac`` of them null."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(rng.randint(0, max_len + 1, n), out=offsets[1:])
+    chars = np.frombuffer(rng.bytes(int(offsets[-1])), np.uint8)
+    return c.strings_from_arrays(chars, offsets.astype(np.int32), rng.rand(n) >= null_frac,
+                                 device)
+
+
+def _business_ids(rng, n, device):
+    """CHAR(16) TPC-DS business ids: 16 uppercase letters, each half the
+    8-letter base-26 spelling of a random key, most significant first, as
+    models/tpcds.py _dim_ids spells its ids."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    keys = rng.randint(0, 26 ** 8, (n, 2), dtype=np.int64)
+    chars = np.empty((n, 16), np.uint8)
+    for half in range(2):
+        for p in range(8):
+            chars[:, 8 * half + p] = keys[:, half] // 26 ** (7 - p) % 26 + ord("A")
+    return c.strings_from_arrays(chars.reshape(-1), 16 * np.arange(n + 1, dtype=np.int32),
+                                 None, device)
+
+
+def _decimal_specials(seed):
+    """Unscaled DECIMAL128 values at every Java byte length 1..16: each
+    length's extremes, the values one past them (which need the next length
+    or, at 16 bytes, a sign byte re-added), random values of that length,
+    and 0, 1, -1."""
+    r = random.Random(seed)
+    vals = [0, 1, -1]
+    for nbytes in range(1, 17):
+        top = 1 << (8 * nbytes - 1)
+        vals += [top - 1, -top]
+        if nbytes < 16:
+            vals += [top, -top - 1]
+        vals += [r.randrange(-top, top) for _ in range(8)]
+    return vals
+
+
+def _decimals(rng, n, device):
+    """DECIMAL(38,2) unscaled values uniform over about +-10**36, the
+    specials of _decimal_specials first."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    hi_max = 10 ** 36 >> 64
+    hi = rng.randint(-hi_max, hi_max + 1, n, dtype=np.int64)
+    lo = rng.randint(-(2 ** 63), 2 ** 63, n, dtype=np.int64)
+    special = _decimal_specials(31)
+    for i, v in enumerate(special):
+        v &= (1 << 128) - 1
+        hi[i] = np.uint64(v >> 64).astype(np.int64)
+        lo[i] = np.uint64(v & 0xFFFFFFFFFFFFFFFF).astype(np.int64)
+    return c.Decimal128Column(torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device),
+                              None, c.decimal(38, 2))
+
+
+def column_hash_batch(device):
+    """The column-hash phase's inputs, drawn with numpy from a fixed seed:
+    ``id16``, ``desc`` and ``dec`` of N_COL rows, a LIST<STRING> of 0-8
+    desc-like leaves with 5% null rows and a STRUCT<STRING, INT64> with 5%
+    null rows, both of N_NESTED rows."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    rng = np.random.RandomState(23)
+    id16 = _business_ids(rng, N_COL, device)
+    desc = _varchar(rng, N_COL, 100, 0.1, device)
+    dec = _decimals(rng, N_COL, device)
+    list_offsets = np.zeros(N_NESTED + 1, np.int64)
+    np.cumsum(rng.randint(0, 9, N_NESTED), out=list_offsets[1:])
+    leaves = _varchar(rng, int(list_offsets[-1]), 100, 0.1, device)
+    lst = c.ListColumn(torch.from_numpy(list_offsets.astype(np.int32)).to(device), leaves,
+                       torch.from_numpy(rng.rand(N_NESTED) >= 0.05).to(device))
+    st = c.StructColumn(
+        (_varchar(rng, N_NESTED, 100, 0.1, device),
+         c.Column(torch.from_numpy(rng.randint(-(2**63), 2**63, N_NESTED, dtype=np.int64))
+                  .to(device), None, c.INT64)),
+        torch.from_numpy(rng.rand(N_NESTED) >= 0.05).to(device))
+    return {"id16": id16, "desc": desc, "dec": dec, "list": lst, "struct": st}
+
+
+def _column_hash_calls(b):
+    """name -> zero-argument call of the public hash API on batch ``b``."""
+    from spark_rapids_jni_tpu_torch.ops import murmur_hash32, xxhash64
+
+    return {
+        "murmur_hash32[id16,desc,dec]": lambda: murmur_hash32(
+            [b["id16"], b["desc"], b["dec"]], seed=42),
+        "xxhash64[desc]": lambda: xxhash64([b["desc"]]),
+        "murmur_hash32[list<string>]": lambda: murmur_hash32([b["list"]], seed=42),
+        "xxhash64[list<string>]": lambda: xxhash64([b["list"]]),
+        "murmur_hash32[struct<string,int64>]": lambda: murmur_hash32([b["struct"]], seed=42),
+        "xxhash64[struct<string,int64>]": lambda: xxhash64([b["struct"]]),
+    }
+
+
+def column_hash_path(batch):
+    """The column-hash path with the counters at 0; returns the counts of the
+    whole path and the outputs.  Each call's own launches are printed too."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    torch.cuda.synchronize()
+    hash_cuda.reset_launches()
+    per_call, outs = {}, {}
+    for name, call in _column_hash_calls(batch).items():
+        before = dict(hash_cuda.launches)
+        outs[name] = call()
+        torch.cuda.synchronize()
+        per_call[name] = {k: v - before[k] for k, v in hash_cuda.launches.items() if v > before[k]}
+    counts = dict(hash_cuda.launches)
+    print(json.dumps({"column_hash_launches": {"total": counts, "per_call": per_call}}))
+    bytes_launches = {k: v.get("mm_hash_bytes", 0) for k, v in per_call.items()}
+    if bytes_launches["murmur_hash32[id16,desc,dec]"] != 3:
+        raise AssertionError("murmur_hash32 over two strings and a decimal launched "
+                             f"mm_hash_bytes {bytes_launches['murmur_hash32[id16,desc,dec]']} "
+                             "times, not 3")
+    for name in ("murmur_hash32[list<string>]", "murmur_hash32[struct<string,int64>]"):
+        if bytes_launches[name] == 0:
+            raise AssertionError(f"{name} launched no mm_hash_bytes")
+    return counts, outs
+
+
+def check_column_hash_against_cpu(batch, outs):
+    """Every column-hash call held bit for bit against the same inputs run on
+    the CPU; returns each CPU run's seconds."""
+    cpu_batch = {k: _on(v, "cpu") for k, v in batch.items()}
+    cpu_s = {}
+    for name, call in _column_hash_calls(cpu_batch).items():
+        t0 = time.perf_counter()
+        want = call()
+        cpu_s[name] = time.perf_counter() - t0
+        _require_equal(f"{name} vs CPU", outs[name].data, want.data)
+    return cpu_s
+
+
+LONG_STR = (
+    "A very long (greater than 128 bytes/char string) to test a multi hash-step data point "
+    "in the MD5 hash function. This string needed to be longer.A 60 character string to "
+    "test MD5's message padding algorithm")
+MIXED_LONG_STR = (
+    "A very long (greater than 128 bytes/char string) to test a multi hash-step data point "
+    "in the MD5 hash function. This string needed to be longer.")
+LIST_LONG_STR = (
+    "A very long (greater than 128 bytes/char string) to test a multi hash-step data point "
+    "in the Murmur3 hash function. This string needed to be longer.")
+
+
+def check_spark_string_vectors(device):
+    """Spark ground truth over strings (HashTest.java via tests/test_hash.py):
+    the strings vectors, the mixed row, and the list of strings (whose
+    expected values are the JAX package's hash of the same rows as a struct
+    of two string columns, as tests/test_hash.py derives them)."""
+    import struct as pystruct
+
+    from spark_rapids_jni_tpu_torch import columnar as c
+    from spark_rapids_jni_tpu_torch.ops import murmur_hash32, xxhash64
+
+    def f32(bits):
+        return pystruct.unpack("<f", pystruct.pack("<I", bits))[0]
+
+    def f64(bits):
+        return pystruct.unpack("<d", pystruct.pack("<Q", bits))[0]
+
+    strs = c.strings_column(["a", "B\nc", "dE\"\u0100\t\u0101 \ud720\ud721\\Fg2'", LONG_STR,
+                             "hiJ\ud720\ud721\ud720\ud721", None], device)
+    mixed = [
+        c.strings_column(["a", "B\n", "dE\"\u0100\t\u0101 \ud720\ud721", MIXED_LONG_STR,
+                          None, None], device),
+        c.column([0, 100, -100, -(2**31), 2**31 - 1, None], c.INT32, device),
+        c.column([0.0, 100.0, -100.0, f64(0x7FF0000000000001), f64(0x7FFFFFFFFFFFFFFF), None],
+                 c.FLOAT64, device),
+        c.column([0.0, 100.0, -100.0, f32(0xFF800001), f32(0xFFFFFFFF), None], c.FLOAT32,
+                 device),
+        c.column([True, False, None, False, True, None], c.BOOL, device),
+    ]
+    leaves = c.strings_column([None, "a", "B\n", "", "dE\"\u0100\t\u0101", " \ud720\ud721",
+                               LIST_LONG_STR, ""], device)
+    lst = c.ListColumn(torch.tensor([0, 2, 4, 6, 7, 8, 8], dtype=torch.int32, device=device),
+                       leaves, torch.tensor([True] * 5 + [False], device=device))
+    cases = [
+        (murmur_hash32([strs], seed=42).to_list(),
+         [1485273170, 1709559900, 1423943036, 176121990, 1199621434, 42]),
+        (xxhash64([strs]).to_list(),
+         [-8582455328737087284, 2221214721321197934, 5798966295358745941,
+          -4834097201550955483, -3782648123388245694, 42]),
+        (murmur_hash32(mixed, seed=1868).to_list(),
+         [1936985022, 720652989, 339312041, 1400354989, 769988643, 1868]),
+        (xxhash64(mixed).to_list(),
+         [7451748878409563026, 6024043102550151964, 3380664624738534402,
+          8444697026100086329, -5888679192448042852, 42]),
+        (murmur_hash32([lst], seed=1868).to_list(),
+         [1286620945, -1467611664, 234247660, -848005081, 1992299068, 1868]),
+        (xxhash64([lst]).to_list(),
+         [-8582455328737087284, 7160715839242204087, -862482741676457612,
+          329540788871337774, -7444071767201028348, 42]),
+    ]
+    for i, (got, want) in enumerate(cases):
+        if got != want:
+            raise AssertionError(f"Spark string vector case {i}: {got} != {want}")
+    return len(cases)
+
+
+def bytes_kernel(batch, counts, mem_rate, int_rate):
+    """mm_hash_bytes against its plain version at full size on id16 and desc,
+    with per-row and with scalar hashes, and timed; returns the kernels-line
+    entry (desc, per-row hashes)."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    rng = np.random.RandomState(13)
+    per_row = torch.from_numpy(
+        rng.randint(-(2**31), 2**31, N_COL, dtype=np.int64).astype(np.int32)
+    ).to(batch["desc"].device)
+    entry = None
+    for col_name in ("id16", "desc"):
+        col = batch[col_name]
+        chars, starts, lens = col.chars, col.offsets[:-1], col.lengths()
+        nbytes_chars = int(col.offsets[-1])
+        words = int((lens // 4).sum())
+        tail = int((lens % 4).sum())
+        ops = OPS_PER_WORD * words + OPS_PER_TAIL_BYTE * tail + OPS_PER_ROW * N_COL
+        for form, h in (("row", per_row), ("scalar", 0x9747B28C)):
+            err = _require_equal(f"mm_hash_bytes {col_name} ({form} hash)",
+                                 hash_cuda.mm_hash_bytes_cuda(chars, starts, lens, h),
+                                 hash_cuda.mm_hash_bytes_torch(chars, starts, lens, h))
+            nbytes = nbytes_chars + N_COL * (8 + 4 + (4 if form == "row" else 0))
+            bytes_ms = nbytes / mem_rate * 1e3
+            ops_ms = ops / int_rate * 1e3
+            line = {
+                "kernel": "mm_hash_bytes", "column": col_name, "seed": form, "n": N_COL,
+                "kernel_ms": _time_ms(lambda: hash_cuda.mm_hash_bytes_cuda(
+                    chars, starts, lens, h)),
+                "plain_ms": _time_ms(lambda: hash_cuda.mm_hash_bytes_torch(
+                    chars, starts, lens, h)),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "int_ops": ops, "chars": nbytes_chars, "words": words,
+                "tail_bytes": tail, "launches": counts["mm_hash_bytes"], "max_abs_err": err,
+            }
+            print(json.dumps(line))
+            if col_name == "desc" and form == "row":
+                entry = {
+                    "name": "mm_hash_bytes", "route": "cuda", "source": SOURCE,
+                    "replaces": BYTES_REPLACES, "launches": counts["mm_hash_bytes"],
+                    "max_abs_err": err, "ms": line["kernel_ms"], "plain_ms": line["plain_ms"],
+                    "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
+                    "library_ms": None,
+                }
+    return entry
+
+
+def time_column_hash(batch):
+    """The two whole full-size calls' times and the peak device memory of
+    each, beside what the batch itself holds; and some of their parts, each
+    timed alone: the decimal's Java bytes, the kernel over them, and the
+    length classes that xxhash64 over bytes walks."""
+    from spark_rapids_jni_tpu_torch.columnar.buckets import length_buckets
+    from spark_rapids_jni_tpu_torch.ops import hashing
+
+    calls = _column_hash_calls(batch)
+    out = {}
+    for name in ("murmur_hash32[id16,desc,dec]", "xxhash64[desc]"):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_ms(calls[name])
+        out[name] = {"ms": ms, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                     "resident_bytes": resident}
+    dec_spans = hashing._decimal128_spans(batch["dec"])
+    desc_lens = batch["desc"].lengths()
+    out["parts_ms"] = {
+        "decimal128_java_bytes": _time_ms(lambda: hashing._decimal128_spans(batch["dec"])),
+        "mm_hash_bytes[dec]": _time_ms(lambda: hashing._mm_hash_bytes(*dec_spans, 42)),
+        "length_buckets[desc]": _time_ms(lambda: length_buckets(desc_lens)),
+    }
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -321,6 +646,24 @@ def main() -> int:
         "peak_mem_bytes": peak, "cpu_step_s": cpu_s, "probe_hits": hits,
         "bloom_bits_set": bits_set, "spark_vector_cases": n_vectors,
         "mem_rate_Bps": mem_rate, "int32_rate_ops": int_rate}}))
+    del keys, values
+
+    t0 = time.perf_counter()
+    batch = column_hash_batch("cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    col_counts, outs = column_hash_path(batch)
+    cpu_col_s = check_column_hash_against_cpu(batch, outs)
+    del outs
+    n_string_vectors = check_spark_string_vectors("cuda")
+    rows.append(bytes_kernel(batch, col_counts, mem_rate, int_rate))
+    for row in rows:  # the main path is now both paths: their launches add up
+        row["launches"] = counts[row["name"]] + col_counts[row["name"]]
+    print(json.dumps({"column_hash": {
+        "n": N_COL, "n_nested": N_NESTED,
+        "chars_bytes": {k: int(batch[k].offsets[-1]) for k in ("id16", "desc")},
+        "calls": time_column_hash(batch), "cpu_s": cpu_col_s, "batch_gen_s": gen_s,
+        "spark_string_vector_cases": n_string_vectors}}))
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

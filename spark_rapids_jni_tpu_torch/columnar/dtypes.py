@@ -146,3 +146,5 @@ DATE32 = DType(Kind.DATE32)
 TIMESTAMP_MICROS = DType(Kind.TIMESTAMP_MICROS)
 TIMESTAMP_MILLIS = DType(Kind.TIMESTAMP_MILLIS)
 TIMESTAMP_SECONDS = DType(Kind.TIMESTAMP_SECONDS)
+LIST = DType(Kind.LIST)
+STRUCT = DType(Kind.STRUCT)

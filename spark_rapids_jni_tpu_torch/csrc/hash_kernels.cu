@@ -1,4 +1,4 @@
-// Spark-exact fixed-width hash contributions for Hopper (sm_90a).
+// Spark-exact hash contributions for Hopper (sm_90a).
 //
 // Replaces the four elementwise Pallas kernels of
 // spark_rapids_jni_tpu/ops/hash_pallas.py that share its `_launch` scaffold:
@@ -6,11 +6,15 @@
 //   srt_mm_hash_long    <- _long_kernel  (Spark Murmur3.hashLong contribution)
 //   srt_mm_hash_int     <- _int_kernel   (Spark Murmur3.hashInt contribution)
 //   srt_xx_hash_fixed4  <- _xx4_kernel   (xxhash64 of one 4-byte value)
+// and the byte-string kernel with the tail that was left to XLA beside it:
+//   srt_mm_hash_bytes   <- _bytes_words_kernel (hash_pallas.py:250) and
+//                          _mm_bytes_tail (ops/hashing.py:162), see below.
 //
-// What bounds them on the card: device-memory bytes.  Each row reads 8 or 4
-// bytes of value and, with a per-row seed, 4 or 8 bytes of running hash, and
-// writes 4 or 8 bytes; the arithmetic is some 10-40 integer instructions a
-// row, far under the card's integer rate at 3.35 TB/s.
+// What bounds the four fixed-width kernels on the card: device-memory bytes.
+// Each row reads 8 or 4 bytes of value and, with a per-row seed, 4 or 8
+// bytes of running hash, and writes 4 or 8 bytes; the arithmetic is some
+// 10-40 integer instructions a row, far under the card's integer rate at
+// 3.35 TB/s.
 //
 // What the design does about it: one thread per row in a grid-stride loop, so
 // neighbouring threads touch neighbouring addresses and every load and store
@@ -135,6 +139,60 @@ __global__ void xx_hash_fixed8_kernel(const uint64_t* __restrict__ v,
   }
 }
 
+// Spark Murmur3.hashUnsafeBytes contribution of one byte string per row:
+// every aligned 4-byte little-endian word gets the mixK1/mixH1 round (what
+// _bytes_words_kernel computed), then each of the <=3 tail bytes is
+// sign-extended to an int and gets a full round (Spark's deviation from
+// canonical murmur3), then fmix with the row's byte length (what
+// _mm_bytes_tail computed).  Row i is chars[starts[i] .. starts[i]+lens[i]),
+// so one kernel serves a string column (starts = offsets[:-1]), decimal128's
+// 16-byte big-endian rows, and each element step of a list walk.
+//
+// What bounds it: device-memory bytes, narrowly.  A row moves its own bytes
+// plus 12-16 B of metadata and hashes (start, length, hash in, hash out); a
+// word costs about 20 integer instructions (four byte loads assembled, two
+// multiplies, two rotates, xor, multiply-add, loop), so at ~4 B a word the
+// integer rate comes close to the memory rate.
+//
+// What the design does about it: one thread per row in a grid-stride loop,
+// the running hash in a register, each byte read once straight from the
+// Arrow buffer.  The TPU path bucketed rows by length, copied them into a
+// padded [n, w] byte matrix, re-packed and transposed that into word tiles,
+// and ran the tail as a second pass; none of that is carried over.  Byte
+// loads are always right at the unaligned row starts of Arrow data and never
+// read past a row's end, so the unpadded buffer is safe; a row of length 0
+// reads nothing, so an empty buffer may be a null pointer.  What this simple
+// design leaves on the table: a warp's 32 threads stream 32 different rows,
+// so its loads are not coalesced and lean on L1 to reuse each line, and
+// short and long rows in one warp diverge.  A warp per long row and 16-byte
+// aligned loads with funnel shifts are later work.
+__global__ void mm_hash_bytes_kernel(const uint8_t* __restrict__ chars,
+                                     const int32_t* __restrict__ starts,
+                                     const int32_t* __restrict__ lens,
+                                     const uint32_t* __restrict__ h,
+                                     uint32_t h_scalar,
+                                     uint32_t* __restrict__ out, int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const int64_t start = starts[i];
+    const int32_t len = lens[i];
+    const int32_t aligned = len & ~3;
+    uint32_t hh = h ? h[i] : h_scalar;
+    for (int32_t j = 0; j < aligned; j += 4) {
+      const uint8_t* q = chars + start + j;
+      const uint32_t k = (uint32_t)q[0] | ((uint32_t)q[1] << 8) |
+                         ((uint32_t)q[2] << 16) | ((uint32_t)q[3] << 24);
+      hh = mm_mix_h1(hh, mm_mix_k1(k));
+    }
+    for (int32_t j = aligned; j < len; ++j) {
+      const uint32_t k = (uint32_t)(int32_t)(int8_t)chars[start + j];
+      hh = mm_mix_h1(hh, mm_mix_k1(k));
+    }
+    out[i] = mm_fmix(hh, (uint32_t)len);
+  }
+}
+
 // Enough blocks to keep every SM full, capped so that large inputs loop
 // inside the block instead of paying for millions of block launches.
 unsigned grid_for(int64_t n) {
@@ -176,6 +234,15 @@ int srt_xx_hash_fixed8(const void* v, const void* seed, uint64_t seed_scalar,
                        void* out, int64_t n, void* stream) {
   xx_hash_fixed8_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint64_t*)v, (const uint64_t*)seed, seed_scalar, (uint64_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+int srt_mm_hash_bytes(const void* chars, const void* starts, const void* lens,
+                      const void* h, uint32_t h_scalar, void* out, int64_t n,
+                      void* stream) {
+  mm_hash_bytes_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)chars, (const int32_t*)starts, (const int32_t*)lens,
+      (const uint32_t*)h, h_scalar, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,11 @@
-"""Fixed-width Spark hash contributions: CUDA kernels and their plain versions.
+"""Spark hash contributions: CUDA kernels and their plain versions.
 
-The port of ``spark_rapids_jni_tpu/ops/hash_pallas.py``'s four elementwise
-kernels.  Each public ``*_cuda`` wrapper takes a 1-D tensor of values and a
-running hash or seed (a tensor of the same length, or a python int):
+The port of ``spark_rapids_jni_tpu/ops/hash_pallas.py``'s kernels: the four
+elementwise fixed-width ones, and the byte-string murmur3 kernel
+(``mm_hash_bytes``, which also takes over the tail that the TPU path ran
+beside its word kernel).  Each public ``*_cuda`` wrapper takes 1-D tensors of
+values (for ``mm_hash_bytes``: a byte buffer and each row's start and length)
+and a running hash or seed (a tensor with one per row, or a python int):
 
 - on a CUDA tensor it launches its kernel from ``csrc/hash_kernels.cu``
   (built on first use, see ``_build``) on the current stream, counts the
@@ -18,7 +21,7 @@ to their low 32 bits, and rely on int64 ``*`` and ``+`` wrapping modulo 2**64.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -44,6 +47,7 @@ launches: Dict[str, int] = {
     "mm_hash_long": 0,
     "mm_hash_int": 0,
     "xx_hash_fixed4": 0,
+    "mm_hash_bytes": 0,
 }
 
 
@@ -147,24 +151,64 @@ def mm_hash_long_torch(v: torch.Tensor, h: Seed) -> torch.Tensor:
     return _as_int32(_mm_fmix(hh, 8))
 
 
+def xx_round4(h, w32: torch.Tensor) -> torch.Tensor:
+    """xxhash64's round over a 4-byte word ``w32`` (int64 holding the
+    unsigned word); ``h`` int64 bits or int."""
+    h = h ^ (w32 * signed64(XX_P1))
+    return _rotl64(h, 23) * signed64(XX_P2) + signed64(XX_P3)
+
+
+def xx_round8(h, w64: torch.Tensor) -> torch.Tensor:
+    """xxhash64's round over an 8-byte word ``w64`` (int64 bits); ``h`` int64
+    bits or int."""
+    k1 = _rotl64(w64 * signed64(XX_P2), 31) * signed64(XX_P1)
+    return _rotl64(h ^ k1, 27) * signed64(XX_P1) + signed64(XX_P4)
+
+
 def xx_hash_fixed4_torch(v: torch.Tensor, seed: Seed) -> torch.Tensor:
     """xxhash64 of one 4-byte value.  ``v`` int32 bits, ``seed`` int64 bits or
     int -> int64 bits."""
-    h = _seed_plus(seed, XX_P5 + 4)
-    h = h ^ (_u32(v) * signed64(XX_P1))
-    h = _rotl64(h, 23) * signed64(XX_P2) + signed64(XX_P3)
-    return _xx_finalize(h)
+    return _xx_finalize(xx_round4(_seed_plus(seed, XX_P5 + 4), _u32(v)))
 
 
 def xx_hash_fixed8_torch(v: torch.Tensor, seed: Seed) -> torch.Tensor:
     """xxhash64 of one 8-byte value.  ``v`` int64 bits, ``seed`` int64 bits or
     int -> int64 bits."""
-    h = _seed_plus(seed, XX_P5 + 8)
-    k1 = v * signed64(XX_P2)
-    k1 = _rotl64(k1, 31) * signed64(XX_P1)
-    h = h ^ k1
-    h = _rotl64(h, 27) * signed64(XX_P1) + signed64(XX_P4)
-    return _xx_finalize(h)
+    return _xx_finalize(xx_round8(_seed_plus(seed, XX_P5 + 8), v))
+
+
+def mm_hash_bytes_torch(chars: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
+                        h: Seed) -> torch.Tensor:
+    """Spark Murmur3.hashUnsafeBytes contribution of ``chars[starts[i] :
+    starts[i] + lens[i]]`` per row: one round per aligned little-endian word,
+    one per sign-extended tail byte, then fmix(len).  ``chars`` uint8,
+    ``starts``/``lens`` int32, ``h`` int32 bits or int -> int32 bits.
+
+    Rows advance in lockstep over word index w, each masked by its own word
+    count, so the loop runs to the longest row's words.  A span that does not
+    lie within ``chars`` raises ValueError."""
+    n = starts.shape[0]
+    buf = chars if chars.numel() else torch.zeros(1, dtype=torch.uint8, device=chars.device)
+    last = buf.numel() - 1
+    s = starts.to(torch.int64)
+    ln = lens.to(torch.int64)
+    if n and bool(((s < 0) | (ln < 0) | (s + ln > chars.numel())).any()):
+        raise ValueError("mm_hash_bytes: a span does not lie within chars")
+    nwords = ln // 4
+    hh = _hash_in32(h)
+    if isinstance(hh, int):
+        hh = torch.full((n,), hh, dtype=torch.int64, device=starts.device)
+    lane = torch.arange(4, dtype=torch.int64, device=starts.device)
+    for w in range(int(nwords.max()) if n else 0):
+        idx = torch.clamp(s[:, None] + (4 * w) + lane, 0, last)
+        word = _u32(buf[idx].view(torch.int32).flatten())  # little-endian
+        hh = torch.where(w < nwords, _mm_mix_h1(hh, _mm_mix_k1(word)), hh)
+    tail = s + 4 * nwords
+    for j in range(3):
+        b = buf[torch.clamp(tail + j, 0, last)].to(torch.int64)
+        sbyte = ((b ^ 0x80) - 0x80) & M32  # the byte as a signed int, as u32 bits
+        hh = torch.where(4 * nwords + j < ln, _mm_mix_h1(hh, _mm_mix_k1(sbyte)), hh)
+    return _as_int32(_mm_fmix(hh, ln))
 
 
 # ---- wrappers ---------------------------------------------------------------
@@ -192,21 +236,25 @@ def _check_aux(name: str, a: Seed, v: torch.Tensor,
     return a, 0
 
 
-def _launch(name: str, fn_name: str, v: torch.Tensor, aux: Optional[torch.Tensor],
-            scalar: int, out_dtype: torch.dtype) -> torch.Tensor:
+def _launch(name: str, fn_name: str, inputs: Sequence[torch.Tensor],
+            aux: Optional[torch.Tensor], scalar: int, out_dtype: torch.dtype,
+            n: int) -> torch.Tensor:
+    """Launch ``fn_name(*inputs, aux or NULL, scalar, out, n, stream)`` on
+    the current stream of the inputs' card; returns ``out[n]``."""
     from spark_rapids_jni_tpu_torch.ops import _build
 
-    if not v.is_contiguous() or (aux is not None and not aux.is_contiguous()):
+    if not all(t.is_contiguous() for t in inputs) or (
+            aux is not None and not aux.is_contiguous()):
         raise ValueError(f"{name}: inputs must be contiguous")
-    n = v.shape[0]
-    out = torch.empty((n,), dtype=out_dtype, device=v.device)
+    dev = inputs[0].device
+    out = torch.empty((n,), dtype=out_dtype, device=dev)
     if n == 0:
         return out
     fn = getattr(_build.library(), fn_name)
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        rc = fn(v.data_ptr(), None if aux is None else aux.data_ptr(), scalar,
-                out.data_ptr(), n, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(t.data_ptr() for t in inputs), None if aux is None else aux.data_ptr(),
+                scalar, out.data_ptr(), n, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
     launches[name] += 1
@@ -220,7 +268,8 @@ def mm_hash_int_cuda(v: torch.Tensor, h: Seed) -> torch.Tensor:
     hv, hs = _check_aux("mm_hash_int", h, v, torch.int32)
     if v.device.type == "cpu":
         return mm_hash_int_torch(v, h)
-    return _launch("mm_hash_int", "srt_mm_hash_int", v, hv, hs & M32, torch.int32)
+    return _launch("mm_hash_int", "srt_mm_hash_int", [v], hv, hs & M32, torch.int32,
+                   v.shape[0])
 
 
 def mm_hash_long_cuda(v: torch.Tensor, h: Seed) -> torch.Tensor:
@@ -230,7 +279,8 @@ def mm_hash_long_cuda(v: torch.Tensor, h: Seed) -> torch.Tensor:
     hv, hs = _check_aux("mm_hash_long", h, v, torch.int32)
     if v.device.type == "cpu":
         return mm_hash_long_torch(v, h)
-    return _launch("mm_hash_long", "srt_mm_hash_long", v, hv, hs & M32, torch.int32)
+    return _launch("mm_hash_long", "srt_mm_hash_long", [v], hv, hs & M32, torch.int32,
+                   v.shape[0])
 
 
 def xx_hash_fixed4_cuda(v: torch.Tensor, seed: Seed) -> torch.Tensor:
@@ -240,7 +290,8 @@ def xx_hash_fixed4_cuda(v: torch.Tensor, seed: Seed) -> torch.Tensor:
     sv, ss = _check_aux("xx_hash_fixed4", seed, v, torch.int64)
     if v.device.type == "cpu":
         return xx_hash_fixed4_torch(v, seed)
-    return _launch("xx_hash_fixed4", "srt_xx_hash_fixed4", v, sv, ss & M64, torch.int64)
+    return _launch("xx_hash_fixed4", "srt_xx_hash_fixed4", [v], sv, ss & M64, torch.int64,
+                   v.shape[0])
 
 
 def xx_hash_fixed8_cuda(v: torch.Tensor, seed: Seed) -> torch.Tensor:
@@ -250,4 +301,32 @@ def xx_hash_fixed8_cuda(v: torch.Tensor, seed: Seed) -> torch.Tensor:
     sv, ss = _check_aux("xx_hash_fixed8", seed, v, torch.int64)
     if v.device.type == "cpu":
         return xx_hash_fixed8_torch(v, seed)
-    return _launch("xx_hash_fixed8", "srt_xx_hash_fixed8", v, sv, ss & M64, torch.int64)
+    return _launch("xx_hash_fixed8", "srt_xx_hash_fixed8", [v], sv, ss & M64, torch.int64,
+                   v.shape[0])
+
+
+def mm_hash_bytes_cuda(chars: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
+                       h: Seed) -> torch.Tensor:
+    """Port of hash_pallas.mm_bytes_words_pallas with hashing._mm_bytes_tail:
+    the whole murmur3 hashUnsafeBytes contribution of ``chars[starts[i] :
+    starts[i] + lens[i]]`` per row.  ``chars`` uint8, ``starts``/``lens``
+    int32, ``h`` int32-bit running hash (tensor or int) -> int32 bits.
+
+    Every span must lie within ``chars``.  The plain version checks that; on
+    the card it is not checked per launch, which would cost a reduction and
+    a host sync each time.  The spans the hash API derives come from columns
+    whose offsets were checked where the column was built."""
+    _check_values("mm_hash_bytes", chars, torch.uint8)
+    _check_values("mm_hash_bytes", starts, torch.int32)
+    _check_values("mm_hash_bytes", lens, torch.int32)
+    if lens.shape != starts.shape:
+        raise TypeError(f"mm_hash_bytes: lens of shape {tuple(lens.shape)}, starts of "
+                        f"shape {tuple(starts.shape)}")
+    if not chars.device == starts.device == lens.device:
+        raise ValueError(f"mm_hash_bytes: chars on {chars.device}, starts on "
+                         f"{starts.device}, lens on {lens.device}")
+    hv, hs = _check_aux("mm_hash_bytes", h, starts, torch.int32)
+    if starts.device.type == "cpu":
+        return mm_hash_bytes_torch(chars, starts, lens, h)
+    return _launch("mm_hash_bytes", "srt_mm_hash_bytes", [chars, starts, lens], hv,
+                   hs & M32, torch.int32, starts.shape[0])

@@ -25,7 +25,7 @@ from spark_rapids_jni_tpu.ops import murmur_hash32 as jax_murmur_hash32
 from spark_rapids_jni_tpu.ops import xxhash64 as jax_xxhash64
 from spark_rapids_jni_tpu_torch import columnar as tc
 from spark_rapids_jni_tpu_torch import interop
-from spark_rapids_jni_tpu_torch.ops import hash_cuda, hashing, murmur_hash32, xxhash64
+from spark_rapids_jni_tpu_torch.ops import hash_cuda, murmur_hash32, xxhash64
 
 import spark_oracles as oracle
 
@@ -182,11 +182,12 @@ MIXED_LONG_STR = (
 
 @pytest.mark.parametrize("which", ["mm", "xx"])
 def test_spark_mixed_vector_after_string_prefix(which):
-    """HashTest's mixed row: its first column is strings, which this slice does
-    not hash, so the JAX package hashes that column and the port chains the
-    four fixed-width columns onto its per-row result."""
-    strings = jc.strings_column(["a", "B\n", "dE\"Ā\tā 휠휡", MIXED_LONG_STR, None, None])
+    """HashTest's mixed row, the strings column first, hashed by the port
+    alone: the strings give the running hash that the four fixed-width
+    columns chain onto."""
     cols = [
+        tc.strings_column(["a", "B\n", "dE\"Ā\tā 휠휡", MIXED_LONG_STR, None, None],
+                          device="cpu"),
         tc.column([0, 100, -100, -(2**31), 2**31 - 1, None], tc.INT32, device="cpu"),
         tc.column([0.0, 100.0, -100.0, _F64(0x7FF0000000000001),
                    _F64(0x7FFFFFFFFFFFFFFF), None], tc.FLOAT64, device="cpu"),
@@ -195,15 +196,13 @@ def test_spark_mixed_vector_after_string_prefix(which):
         tc.column([True, False, None, False, True, None], tc.BOOL, device="cpu"),
     ]
     if which == "mm":
-        h = _t(np.asarray(jax_murmur_hash32([strings], seed=1868).data))
+        got = murmur_hash32(cols, seed=1868).to_list()
         expected = [1936985022, 720652989, 339312041, 1400354989, 769988643, 1868]
     else:
-        h = _t(np.asarray(jax_xxhash64([strings]).data))
+        got = xxhash64(cols).to_list()
         expected = [7451748878409563026, 6024043102550151964, 3380664624738534402,
                     8444697026100086329, -5888679192448042852, 42]
-    for col in cols:
-        h = hashing._hash_column(col, h, mm=which == "mm")
-    assert h.tolist() == expected
+    assert got == expected
 
 
 def test_random_longs_vs_oracle():
@@ -239,10 +238,17 @@ def test_columns_with_nulls_match_jax(backend):
 
 
 def test_unported_and_unsupported_inputs_raise():
-    with pytest.raises(NotImplementedError, match="column-hash slice"):
-        murmur_hash32([jc.strings_column(["a"])])
-    with pytest.raises(NotImplementedError, match="column-hash slice"):
-        xxhash64([tc.Column(torch.zeros(1, dtype=torch.uint8), None, tc.STRING)])
+    """Strings hash now (the column-hash slice); what still raises: a LIST of
+    STRUCT (as Spark refuses it), unsupported kinds, an empty column list,
+    and wrapper arguments of the wrong type, shape or device."""
+    assert murmur_hash32([tc.strings_column(["a"], device="cpu")], seed=42).to_list() == \
+        [1485273170]
+    child = tc.StructColumn((tc.column([1, 2], tc.INT32, device="cpu"),), None)
+    lst = tc.ListColumn(torch.tensor([0, 1, 2], dtype=torch.int32), child, None)
+    with pytest.raises(ValueError, match="LIST of STRUCT"):
+        murmur_hash32([lst])
+    with pytest.raises(ValueError, match="LIST of STRUCT"):
+        xxhash64([tc.ListColumn(torch.tensor([0, 2], dtype=torch.int32), lst, None)])
     with pytest.raises(ValueError, match="unsupported"):
         murmur_hash32([tc.column([1], tc.TIMESTAMP_MILLIS, device="cpu")])
     with pytest.raises(ValueError, match="at least one column"):
@@ -252,6 +258,18 @@ def test_unported_and_unsupported_inputs_raise():
     with pytest.raises(TypeError, match="seed/hash"):
         hash_cuda.mm_hash_int_cuda(torch.zeros(4, dtype=torch.int32),
                                    torch.zeros(3, dtype=torch.int32))
+    chars = torch.zeros(8, dtype=torch.uint8)
+    spans = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError, match="uint8"):
+        hash_cuda.mm_hash_bytes_cuda(chars.to(torch.int32), spans, spans, 0)
+    with pytest.raises(TypeError, match="int32"):
+        hash_cuda.mm_hash_bytes_cuda(chars, spans.to(torch.int64), spans, 0)
+    with pytest.raises(TypeError, match="lens of shape"):
+        hash_cuda.mm_hash_bytes_cuda(chars, spans, spans[:3], 0)
+    with pytest.raises(TypeError, match="seed/hash"):
+        hash_cuda.mm_hash_bytes_cuda(chars, spans, spans, torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(ValueError, match="on meta"):
+        hash_cuda.mm_hash_bytes_cuda(chars, spans, spans.to("meta"), 0)
 
 
 # --- interop ------------------------------------------------------------------
@@ -299,8 +317,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import spark_rapids_jni_tpu_torch.device, spark_rapids_jni_tpu_torch.interop\n"
         "import spark_rapids_jni_tpu_torch.columnar, spark_rapids_jni_tpu_torch.ops\n"
+        "import spark_rapids_jni_tpu_torch.columnar.buckets\n"
+        "import spark_rapids_jni_tpu_torch.columnar.column\n"
+        "import spark_rapids_jni_tpu_torch.columnar.dtypes\n"
+        "import spark_rapids_jni_tpu_torch.ops.hashing\n"
         "import spark_rapids_jni_tpu_torch.ops._build, spark_rapids_jni_tpu_torch.ops.hash_cuda\n"
         "import spark_rapids_jni_tpu_torch.parallel, spark_rapids_jni_tpu_torch.models\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.split('.')[0] == 'spark_rapids_jni_tpu')\n"
         "assert not bad, bad\n"
