@@ -29,14 +29,27 @@ port package beside it.  Otherwise it:
    and the runtime bloom filter's ``xxhash64([desc])`` over 2**24 rows (a
    CHAR(16) business id, a VARCHAR(100) with 10% nulls and a DECIMAL(38,2):
    about 1.07 GB of chars), then both hashes over a ``LIST<STRING>`` and a
-   ``STRUCT<STRING, INT64>`` of 2**20 rows; ``mm_hash_bytes`` must have
-   launched from the string, the decimal and the list calls;
+   ``STRUCT<STRING, INT64>`` of 2**20 rows; the murmur calls must have gone
+   through the byte kernel's three entry points: ``mm_hash_strings`` twice
+   and ``mm_hash_decimal128`` once (and no ``mm_hash_bytes``) for the key,
+   ``mm_hash_bytes`` for the list's element steps, ``mm_hash_strings`` for
+   the struct's string;
 8. holds every column-hash call bit for bit against the same inputs on the
-   CPU, holds ``mm_hash_bytes`` against its plain version at 2**24 rows,
-   checks the Spark string, mixed-row and string-list vectors on the card,
-   times the kernel and the two whole calls, and prints ``mm_hash_bytes``
-   lines and a ``column_hash`` line; then the card's name and power limit,
-   the ``kernels`` line (all five kernels) and, last, the ``ok`` line.
+   CPU and checks the Spark string, mixed-row and string-list vectors on the
+   card; holds each entry point bit for bit against its plain version with
+   per-row and scalar hashes, and times it: ``mm_hash_strings`` on id16 and
+   desc at 2**24 rows and on a hazard column (rows of 0-100 B with a few of
+   64 KiB and 1 MiB, all-empty tiles, ``chars`` as views at base offsets
+   0..15 and as an empty buffer), ``mm_hash_bytes`` on the spans of one list
+   element step (and the hazard rows gathered out of order), and
+   ``mm_hash_decimal128`` on dec with its specials; times ``mm_hash_strings``
+   against ``mm_hash_bytes`` over the same rows of id16 and desc in
+   alternating pairs (a ``staging_pairs`` line); times every byte-kernel
+   launch of the murmur calls at its own shape beside its bound (a
+   ``launch_bounds`` line); times the six whole calls with their peak
+   memory and prints a ``column_hash`` line; then the
+   card's name and power limit, the ``kernels`` line (all seven kernels)
+   and, last, the ``ok`` line.
 
 Every check that fails raises, and the script then exits non-zero.
 """
@@ -75,15 +88,23 @@ KERNELS = {
                        torch.int32, torch.int64, 8, 33),
 }
 
-# The byte-string kernel (csrc/hash_kernels.cu mm_hash_bytes_kernel), and its
-# 32-bit instructions counted by hand from the source the same way: a word
-# costs 20 (row address 2, four byte loads 4, assembling them 6, mixK1 3,
-# mixH1 3, loop 2), a tail byte 12 (address 2, load 1, sign extension 1,
-# mixK1 3, mixH1 3, loop 2), and a row 22 beside them (loading its start,
-# length and hash 3, 64-bit index arithmetic 6, word count 1, fmix 8, store
-# 1, grid-stride loop 3).
+# The byte-string kernel's three entry points (csrc/hash_kernels.cu), all
+# replacing the same TPU kernel, and their 32-bit instructions counted by hand
+# from the source as above.  mm_hash_row: a word costs 12 (position 1, clamp
+# 1, aligned load 1, funnel shift 1, mixK1 3, mixH1 3, loop 2), a tail byte 10
+# (shift 1, sign extension 1, mixK1 3, mixH1 3, loop 2).  Beside them, a row
+# of mm_hash_strings 32 (offsets and hash 3, addresses 6, window test 3, row
+# set-up 6, first word 1, tail set-up 4, fmix 8, store 1) and 3 a staged
+# 16-byte chunk (address, cp.async, loop); a row of mm_hash_bytes 30 (start,
+# length and hash 3, address 4, row set-up 6, first word 1, tail set-up 4,
+# fmix 8, store 1, grid-stride loop 3); a row of mm_hash_decimal128 85
+# (loads 3, sign and complement 5, clz 4, length and shift 12, four
+# predicated word rounds with byte swaps 28, tail select 3, three predicated
+# tail rounds 24, fmix 8, store 1, loop 3 -- counted whole, since the
+# predicated rounds issue whatever the length).
 BYTES_REPLACES = "spark_rapids_jni_tpu/ops/hash_pallas.py:250"
-OPS_PER_WORD, OPS_PER_TAIL_BYTE, OPS_PER_ROW = 20, 12, 22
+OPS_PER_WORD, OPS_PER_TAIL_BYTE, OPS_PER_CHUNK = 12, 10, 3
+OPS_PER_ROW = {"mm_hash_strings": 32, "mm_hash_bytes": 30, "mm_hash_decimal128": 85}
 N_COL = 1 << 24  # rows of the column-hash batch
 N_NESTED = 1 << 20  # rows of its list and struct columns
 
@@ -108,6 +129,15 @@ def _card_rates():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_hz = float(_nvidia_smi("clocks.max.sm")) * 1e6
     return mem, sms * INT32_LANES_PER_SM * clock_hz
+
+
+def _bound(nbytes: int, ops: int, rates) -> dict:
+    """The least time the card could take: the larger of ``nbytes`` over the
+    memory rate and ``ops`` over the integer rate, and which one it is."""
+    mem_rate, int_rate = rates
+    bytes_ms, ops_ms = nbytes / mem_rate * 1e3, ops / int_rate * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def _time_ms(fn) -> float:
@@ -249,7 +279,7 @@ def _random(dtype, rng):
     return torch.from_numpy(a).to("cuda")
 
 
-def kernels(counts, mem_rate, int_rate):
+def kernels(counts, rates):
     from spark_rapids_jni_tpu_torch.ops import hash_cuda
 
     rng = np.random.RandomState(11)
@@ -264,14 +294,11 @@ def kernels(counts, mem_rate, int_rate):
             err = _require_equal(f"{name} ({form} seed)", wrapper(v, aux), plain(v, aux))
             nbytes = N * (v.element_size() + out_bytes
                           + (per_row.element_size() if form == "row" else 0))
-            bytes_ms = nbytes / mem_rate * 1e3
-            ops_ms = N * ops / int_rate * 1e3
             line = {
                 "kernel": name, "seed": form, "n": N,
                 "kernel_ms": _time_ms(lambda: wrapper(v, aux)),
                 "plain_ms": _time_ms(lambda: plain(v, aux)),
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                **_bound(nbytes, N * ops, rates),
                 "bytes": nbytes, "int_ops": N * ops,
                 "launches": counts[name], "max_abs_err": err,
             }
@@ -283,6 +310,7 @@ def kernels(counts, mem_rate, int_rate):
                     "max_abs_err": err, "ms": line["kernel_ms"],
                     "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
                     "bound_by": line["bound_by"], "library_ms": None,
+                    "column": "random", "n": N,
                 }
         rows.append(entry)
         del v, per_row
@@ -459,14 +487,18 @@ def column_hash_path(batch):
         per_call[name] = {k: v - before[k] for k, v in hash_cuda.launches.items() if v > before[k]}
     counts = dict(hash_cuda.launches)
     print(json.dumps({"column_hash_launches": {"total": counts, "per_call": per_call}}))
-    bytes_launches = {k: v.get("mm_hash_bytes", 0) for k, v in per_call.items()}
-    if bytes_launches["murmur_hash32[id16,desc,dec]"] != 3:
-        raise AssertionError("murmur_hash32 over two strings and a decimal launched "
-                             f"mm_hash_bytes {bytes_launches['murmur_hash32[id16,desc,dec]']} "
-                             "times, not 3")
-    for name in ("murmur_hash32[list<string>]", "murmur_hash32[struct<string,int64>]"):
-        if bytes_launches[name] == 0:
-            raise AssertionError(f"{name} launched no mm_hash_bytes")
+    want = {  # call -> {byte entry point: launches, or None for "at least one"}
+        "murmur_hash32[id16,desc,dec]": {"mm_hash_strings": 2, "mm_hash_decimal128": 1,
+                                         "mm_hash_bytes": 0},
+        "murmur_hash32[list<string>]": {"mm_hash_bytes": None},
+        "murmur_hash32[struct<string,int64>]": {"mm_hash_strings": 1},
+    }
+    for call, entries in want.items():
+        for kernel, n in entries.items():
+            got = per_call[call].get(kernel, 0)
+            if (n is None and got == 0) or (n is not None and got != n):
+                raise AssertionError(f"{call} launched {kernel} {got} times, not "
+                                     f"{'at least once' if n is None else n}")
     return counts, outs
 
 
@@ -550,76 +582,323 @@ def check_spark_string_vectors(device):
     return len(cases)
 
 
-def bytes_kernel(batch, counts, mem_rate, int_rate):
-    """mm_hash_bytes against its plain version at full size on id16 and desc,
-    with per-row and with scalar hashes, and timed; returns the kernels-line
-    entry (desc, per-row hashes)."""
+def _row_hashes(n, seed, device):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
+                            ).to(device)
+
+
+def _byte_line(kernel, what, form, n, nbytes, ops, rates, times, launches, err, **extra):
+    """One timing line of a byte-kernel entry point, its bound computed from
+    this run's inputs: ``nbytes`` moved and ``ops`` 32-bit instructions."""
+    line = {"kernel": kernel, "column": what, "seed": form, "n": n,
+            "kernel_ms": times[0], "plain_ms": times[1], **_bound(nbytes, ops, rates),
+            "bytes": nbytes, "int_ops": ops, **extra, "launches": launches,
+            "max_abs_err": err}
+    print(json.dumps(line))
+    return line
+
+
+def _entry(line):
+    """The kernels-line entry of a byte entry point, from its main line,
+    with the input it was timed on: ``column`` and its ``n`` rows."""
+    return {"name": line["kernel"], "route": "cuda", "source": SOURCE,
+            "replaces": BYTES_REPLACES, "launches": line["launches"],
+            "max_abs_err": line["max_abs_err"], "ms": line["kernel_ms"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+            "bound_by": line["bound_by"], "library_ms": None,
+            "column": line["column"], "n": line["n"]}
+
+
+def _row_ops(kernel, lens: torch.Tensor, chunks: int = 0) -> int:
+    """Hand-counted 32-bit instructions for rows of these byte lengths."""
+    words, tail = int((lens // 4).sum()), int((lens % 4).sum())
+    return (OPS_PER_WORD * words + OPS_PER_TAIL_BYTE * tail + OPS_PER_CHUNK * chunks
+            + OPS_PER_ROW[kernel] * lens.numel())
+
+
+def strings_kernel(batch, counts, rates):
+    """mm_hash_strings against its plain version on id16 and desc (2**24
+    rows), each hash form, timed; returns the kernels-line entry (desc,
+    per-row hashes).  Then the hazard column (see _hazard_strings)."""
     from spark_rapids_jni_tpu_torch.ops import hash_cuda
 
-    rng = np.random.RandomState(13)
-    per_row = torch.from_numpy(
-        rng.randint(-(2**31), 2**31, N_COL, dtype=np.int64).astype(np.int32)
-    ).to(batch["desc"].device)
+    per_row = _row_hashes(N_COL, 13, batch["desc"].device)
     entry = None
     for col_name in ("id16", "desc"):
         col = batch[col_name]
-        chars, starts, lens = col.chars, col.offsets[:-1], col.lengths()
-        nbytes_chars = int(col.offsets[-1])
-        words = int((lens // 4).sum())
-        tail = int((lens % 4).sum())
-        ops = OPS_PER_WORD * words + OPS_PER_TAIL_BYTE * tail + OPS_PER_ROW * N_COL
+        chars, offsets = col.chars, col.offsets
+        lens = col.lengths()
+        nchars = int(offsets[-1])
+        ops = _row_ops("mm_hash_strings", lens, -(-nchars // 16))
         for form, h in (("row", per_row), ("scalar", 0x9747B28C)):
-            err = _require_equal(f"mm_hash_bytes {col_name} ({form} hash)",
-                                 hash_cuda.mm_hash_bytes_cuda(chars, starts, lens, h),
-                                 hash_cuda.mm_hash_bytes_torch(chars, starts, lens, h))
-            nbytes = nbytes_chars + N_COL * (8 + 4 + (4 if form == "row" else 0))
-            bytes_ms = nbytes / mem_rate * 1e3
-            ops_ms = ops / int_rate * 1e3
-            line = {
-                "kernel": "mm_hash_bytes", "column": col_name, "seed": form, "n": N_COL,
-                "kernel_ms": _time_ms(lambda: hash_cuda.mm_hash_bytes_cuda(
-                    chars, starts, lens, h)),
-                "plain_ms": _time_ms(lambda: hash_cuda.mm_hash_bytes_torch(
-                    chars, starts, lens, h)),
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes": nbytes, "int_ops": ops, "chars": nbytes_chars, "words": words,
-                "tail_bytes": tail, "launches": counts["mm_hash_bytes"], "max_abs_err": err,
-            }
-            print(json.dumps(line))
+            err = _require_equal(f"mm_hash_strings {col_name} ({form} hash)",
+                                 hash_cuda.mm_hash_strings_cuda(chars, offsets, h),
+                                 hash_cuda.mm_hash_strings_torch(chars, offsets, h))
+            times = (_time_ms(lambda: hash_cuda.mm_hash_strings_cuda(chars, offsets, h)),
+                     _time_ms(lambda: hash_cuda.mm_hash_strings_torch(chars, offsets, h)))
+            nbytes = nchars + 4 * (N_COL + 1) + N_COL * (8 if form == "row" else 4)
+            line = _byte_line("mm_hash_strings", col_name, form, N_COL, nbytes, ops, rates,
+                              times, counts["mm_hash_strings"], err, chars=nchars)
             if col_name == "desc" and form == "row":
-                entry = {
-                    "name": "mm_hash_bytes", "route": "cuda", "source": SOURCE,
-                    "replaces": BYTES_REPLACES, "launches": counts["mm_hash_bytes"],
-                    "max_abs_err": err, "ms": line["kernel_ms"], "plain_ms": line["plain_ms"],
-                    "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
-                    "library_ms": None,
-                }
+                entry = _entry(line)
+    _hazard_strings(batch["desc"].device)
     return entry
 
 
-def time_column_hash(batch):
-    """The two whole full-size calls' times and the peak device memory of
-    each, beside what the batch itself holds; and some of their parts, each
-    timed alone: the decimal's Java bytes, the kernel over them, and the
-    length classes that xxhash64 over bytes walks."""
-    from spark_rapids_jni_tpu_torch.columnar.buckets import length_buckets
-    from spark_rapids_jni_tpu_torch.ops import hashing
+PAIRS = 10
 
-    calls = _column_hash_calls(batch)
+
+def staging_pairs(batch):
+    """Whether staging tiles in shared memory pays: mm_hash_strings against
+    the unstaged mm_hash_bytes over the same rows of id16 and desc (spans
+    from the offsets, per-row hashes), timed in PAIRS alternating pairs
+    whose order flips each pair.  Both are held bit for bit first.  Prints
+    one line and returns it."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
     out = {}
-    for name in ("murmur_hash32[id16,desc,dec]", "xxhash64[desc]"):
+    for col_name in ("id16", "desc"):
+        col = batch[col_name]
+        starts = col.offsets[:-1].contiguous()
+        lens = col.lengths().contiguous()
+        h = _row_hashes(N_COL, 73, starts.device)
+        fns = {"strings": lambda: hash_cuda.mm_hash_strings_cuda(col.chars, col.offsets, h),
+               "bytes": lambda: hash_cuda.mm_hash_bytes_cuda(col.chars, starts, lens, h)}
+        _require_equal(f"mm_hash_strings vs mm_hash_bytes on {col_name}", fns["strings"](),
+                       fns["bytes"]())
+        times = {k: [] for k in fns}
+        for p in range(PAIRS):
+            for k in (("strings", "bytes") if p % 2 == 0 else ("bytes", "strings")):
+                times[k].append(_time_ms(fns[k]))
+        diffs = [b - s for s, b in zip(times["strings"], times["bytes"])]
+        out[col_name] = {**{f"{k}_ms": v for k, v in times.items()},
+                         "strings_faster_pairs": sum(d > 0 for d in diffs),
+                         "median_gain_ms": statistics.median(diffs)}
+    line = {"staging_pairs": out}
+    print(json.dumps(line))
+    return line
+
+
+HAZARD_ROWS = (1 << 16) + 77  # a ragged last tile of 77 rows
+HAZARD_LONG = (1 << 16, 1 << 20)  # the lengths of its long rows
+
+
+def hazard_column(seed=29):
+    """HAZARD_ROWS rows of 0-100 bytes mixed with three of 64 KiB and two of
+    1 MiB, two whole tiles of empty rows, and a ragged last tile: (uint8
+    chars, int32 offsets) on the CPU."""
+    rng = np.random.RandomState(seed)
+    n = HAZARD_ROWS
+    lens = rng.randint(0, 101, n)
+    lens[5 * 256:7 * 256] = 0
+    lens[[1000, 30001, 50002]] = HAZARD_LONG[0]
+    lens[[20003, 60000]] = HAZARD_LONG[1]
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    chars = np.frombuffer(rng.bytes(int(offsets[-1])), np.uint8).copy()
+    return torch.from_numpy(chars), torch.from_numpy(offsets.astype(np.int32))
+
+
+def _views(chars, device):
+    """``chars`` copied to ``device`` as views at base offsets 0..15 of one
+    buffer, and the base of each."""
+    buf = torch.zeros(chars.numel() + 16, dtype=torch.uint8, device=device)
+    for base in range(16):
+        view = buf[base:base + chars.numel()]
+        view.copy_(chars)
+        yield base, view
+
+
+def _hazard_strings(device):
+    """mm_hash_strings on the hazard column, its chars at every base offset
+    0..15, and on an all-empty column over an empty buffer, per-row and
+    scalar hashes, against the plain version.  The plain version walks a
+    1 MiB row one word at a time, which takes seconds of op dispatch on
+    either device, so it runs once per hash form, on the CPU copies of the
+    same inputs; the kernel's result does not depend on the base offset."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    chars, offsets = hazard_column()
+    n = offsets.numel() - 1
+    per_row = _row_hashes(n, 37, "cpu")
+    doffs = offsets.to(device)
+    checks = 0
+    for form, h in (("row", per_row), ("scalar", 0x9747B28C)):
+        want = hash_cuda.mm_hash_strings_torch(chars, offsets, h)
+        dh = h.to(device) if isinstance(h, torch.Tensor) else h
+        for base, view in _views(chars, device):
+            _require_equal(f"mm_hash_strings hazard, base {base} ({form} hash)",
+                           hash_cuda.mm_hash_strings_cuda(view, doffs, dh), want)
+            checks += 1
+        empty = torch.zeros(0, dtype=torch.uint8, device=device)
+        zeros = torch.zeros(n + 1, dtype=torch.int32, device=device)
+        _require_equal(f"mm_hash_strings empty buffer ({form} hash)",
+                       hash_cuda.mm_hash_strings_cuda(empty, zeros, dh),
+                       hash_cuda.mm_hash_strings_torch(empty.cpu(), zeros.cpu(), h))
+        checks += 1
+    print(json.dumps({"kernel": "mm_hash_strings", "column": "hazard", "n": n,
+                      "chars": int(offsets[-1]), "longest": int((offsets[1:] - offsets[:-1]).max()),
+                      "bases": 16, "checks": checks, "max_abs_err": 0.0}))
+
+
+def spans_kernel(batch, counts, rates):
+    """mm_hash_bytes against its plain version on the spans of one list
+    element step, each hash form, timed; then on the hazard column's rows in
+    a shuffled order at every base offset.  Returns the kernels-line entry
+    (list step, per-row hashes)."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    lst = batch["list"]
+    chars = lst.child.chars
+    starts, lens = max(_list_steps(lst), key=lambda sl: sl[0].numel())
+    starts, lens = starts.contiguous(), lens.contiguous()
+    n = starts.numel()
+    per_row = _row_hashes(n, 41, chars.device)
+    span_bytes = int(lens.sum())
+    ops = _row_ops("mm_hash_bytes", lens)
+    entry = None
+    for form, h in (("row", per_row), ("scalar", 0x9747B28C)):
+        err = _require_equal(f"mm_hash_bytes list step ({form} hash)",
+                             hash_cuda.mm_hash_bytes_cuda(chars, starts, lens, h),
+                             hash_cuda.mm_hash_bytes_torch(chars, starts, lens, h))
+        times = (_time_ms(lambda: hash_cuda.mm_hash_bytes_cuda(chars, starts, lens, h)),
+                 _time_ms(lambda: hash_cuda.mm_hash_bytes_torch(chars, starts, lens, h)))
+        nbytes = span_bytes + n * (16 if form == "row" else 12)
+        line = _byte_line("mm_hash_bytes", "list<string> step", form, n, nbytes, ops, rates,
+                          times, counts["mm_hash_bytes"], err, chars=span_bytes)
+        if form == "row":
+            entry = _entry(line)
+
+    hchars, hoffs = hazard_column(seed=43)
+    perm = torch.from_numpy(np.random.RandomState(47).permutation(hoffs.numel() - 1))
+    hstarts = hoffs[:-1][perm].contiguous()
+    hlens = (hoffs[1:] - hoffs[:-1])[perm].contiguous()
+    hh = _row_hashes(perm.numel(), 53, "cpu")
+    want = hash_cuda.mm_hash_bytes_torch(hchars, hstarts, hlens, hh)
+    dev = chars.device
+    for base, view in _views(hchars, dev):
+        _require_equal(f"mm_hash_bytes hazard, base {base}",
+                       hash_cuda.mm_hash_bytes_cuda(view, hstarts.to(dev), hlens.to(dev),
+                                                    hh.to(dev)), want)
+    print(json.dumps({"kernel": "mm_hash_bytes", "column": "hazard, shuffled", "n": perm.numel(),
+                      "bases": 16, "checks": 16, "max_abs_err": 0.0}))
+    return entry
+
+
+def decimal_kernel(batch, counts, rates):
+    """mm_hash_decimal128 against its plain version on dec (specials first),
+    each hash form, timed, and against the bytes route (the Java bytes built
+    in torch, hashed by mm_hash_bytes) once; returns the kernels-line entry
+    (per-row hashes)."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda, hashing
+
+    dec = batch["dec"]
+    n = dec.size
+    per_row = _row_hashes(n, 59, dec.hi.device)
+    ops = OPS_PER_ROW["mm_hash_decimal128"] * n
+    entry = None
+    for form, h in (("row", per_row), ("scalar", 0x9747B28C)):
+        got = hash_cuda.mm_hash_decimal128_cuda(dec.hi, dec.lo, h)
+        err = _require_equal(f"mm_hash_decimal128 ({form} hash)", got,
+                             hash_cuda.mm_hash_decimal128_torch(dec.hi, dec.lo, h))
+        times = (_time_ms(lambda: hash_cuda.mm_hash_decimal128_cuda(dec.hi, dec.lo, h)),
+                 _time_ms(lambda: hash_cuda.mm_hash_decimal128_torch(dec.hi, dec.lo, h)))
+        nbytes = n * (16 + (8 if form == "row" else 4))
+        line = _byte_line("mm_hash_decimal128", "dec", form, n, nbytes, ops, rates, times,
+                          counts["mm_hash_decimal128"], err,
+                          specials=len(_decimal_specials(31)))
+        if form == "row":
+            entry = _entry(line)
+            _require_equal("mm_hash_decimal128 vs the Java bytes route", got,
+                           hashing._mm_hash_bytes(*hashing._decimal128_spans(dec), per_row))
+    return entry
+
+
+def _list_steps(lst):
+    """Each element step of the list walk over ``lst`` (hashing._hash_list),
+    in its order: the (starts, lens) of the spans that one mm_hash_bytes
+    launch hashes, clamped element indices included."""
+    from spark_rapids_jni_tpu_torch.columnar.buckets import length_buckets
+
+    starts = lst.offsets[:-1].to(torch.int64)
+    lens = lst.offsets[1:].to(torch.int64) - starts
+    live = torch.nonzero((lens > 0) & lst.is_valid()).flatten()
+    leaf = lst.child
+    for _, sub in length_buckets(lens[live]):
+        rows = live[sub]
+        for j in range(int(lens[rows].max())):
+            idx = torch.clamp(starts[rows] + j, max=leaf.size - 1)
+            s = leaf.offsets[idx]
+            yield s, leaf.offsets[idx + 1] - s
+
+
+def launch_bounds(batch, rates):
+    """Every byte-kernel launch of the murmur calls on the column-hash path,
+    at its own shape, with per-row hashes as the calls pass them: its bytes
+    and bound from this run's inputs, and its time alone.  Prints one line
+    and returns it."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    def shape(call, kernel, n, nbytes, ops, fn):
+        return {"call": call, "kernel": kernel, "n": n, "bytes": nbytes,
+                **_bound(nbytes, ops, rates), "ms": _time_ms(fn)}
+
+    def strings(call, col):
+        n, nchars = col.size, int(col.offsets[-1] - col.offsets[0])
+        h = _row_hashes(n, 61, col.chars.device)
+        return shape(call, "mm_hash_strings", n, nchars + 4 * (n + 1) + 8 * n,
+                     _row_ops("mm_hash_strings", col.lengths(), -(-nchars // 16)),
+                     lambda: hash_cuda.mm_hash_strings_cuda(col.chars, col.offsets, h))
+
+    key = "murmur_hash32[id16,desc,dec]"
+    dec = batch["dec"]
+    hd = _row_hashes(dec.size, 67, dec.hi.device)
+    out = [strings(key, batch["id16"]), strings(key, batch["desc"]),
+           shape(key, "mm_hash_decimal128", dec.size, 24 * dec.size,
+                 OPS_PER_ROW["mm_hash_decimal128"] * dec.size,
+                 lambda: hash_cuda.mm_hash_decimal128_cuda(dec.hi, dec.lo, hd)),
+           strings("murmur_hash32[struct<string,int64>]", batch["struct"].children[0])]
+    chars = batch["list"].child.chars
+    for starts, lens in _list_steps(batch["list"]):
+        st, ln = starts.contiguous(), lens.contiguous()
+        h = _row_hashes(st.numel(), 71, chars.device)
+        out.append(shape("murmur_hash32[list<string>]", "mm_hash_bytes", st.numel(),
+                         int(ln.sum()) + 16 * st.numel(), _row_ops("mm_hash_bytes", ln),
+                         lambda: hash_cuda.mm_hash_bytes_cuda(chars, st, ln, h)))
+    totals = {}
+    for row in out:
+        t = totals.setdefault(f"{row['call']} {row['kernel']}",
+                              {"launches": 0, "ms": 0.0, "bound_ms": 0.0})
+        t["launches"] += 1
+        t["ms"] += row["ms"]
+        t["bound_ms"] += row["bound_ms"]
+    line = {"launch_bounds": out, "totals": totals}
+    print(json.dumps(line))
+    return line
+
+
+def time_column_hash(batch):
+    """The six whole full-size calls' times and the peak device memory of
+    each, beside what the batch itself holds; and some of their parts, each
+    timed alone: the decimal kernel and the length classes that xxhash64 over
+    bytes walks."""
+    from spark_rapids_jni_tpu_torch.columnar.buckets import length_buckets
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    out = {}
+    for name, call in _column_hash_calls(batch).items():
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        ms = _time_ms(calls[name])
+        ms = _time_ms(call)
         out[name] = {"ms": ms, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                      "resident_bytes": resident}
-    dec_spans = hashing._decimal128_spans(batch["dec"])
+    dec = batch["dec"]
     desc_lens = batch["desc"].lengths()
     out["parts_ms"] = {
-        "decimal128_java_bytes": _time_ms(lambda: hashing._decimal128_spans(batch["dec"])),
-        "mm_hash_bytes[dec]": _time_ms(lambda: hashing._mm_hash_bytes(*dec_spans, 42)),
+        "mm_hash_decimal128[dec]": _time_ms(
+            lambda: hash_cuda.mm_hash_decimal128_cuda(dec.hi, dec.lo, 42)),
         "length_buckets[desc]": _time_ms(lambda: length_buckets(desc_lens)),
     }
     return out
@@ -638,14 +917,14 @@ def main() -> int:
     cpu_s, hits, bits_set = check_against_cpu(cfg, keys, values, cols, step, mm, xx)
     del cols, step, mm, xx
     n_vectors = check_spark_vectors()
-    mem_rate, int_rate = _card_rates()
-    rows = kernels(counts, mem_rate, int_rate)
+    rates = _card_rates()
+    rows = kernels(counts, rates)
     step_ms, phases, peak = time_step(cfg, keys, values)
     print(json.dumps({"step": {
         "n": N, "cfg": cfg._asdict(), "step_ms": step_ms, "phases_ms": phases,
         "peak_mem_bytes": peak, "cpu_step_s": cpu_s, "probe_hits": hits,
         "bloom_bits_set": bits_set, "spark_vector_cases": n_vectors,
-        "mem_rate_Bps": mem_rate, "int32_rate_ops": int_rate}}))
+        "mem_rate_Bps": rates[0], "int32_rate_ops": rates[1]}}))
     del keys, values
 
     t0 = time.perf_counter()
@@ -656,7 +935,10 @@ def main() -> int:
     cpu_col_s = check_column_hash_against_cpu(batch, outs)
     del outs
     n_string_vectors = check_spark_string_vectors("cuda")
-    rows.append(bytes_kernel(batch, col_counts, mem_rate, int_rate))
+    rows += [strings_kernel(batch, col_counts, rates), spans_kernel(batch, col_counts, rates),
+             decimal_kernel(batch, col_counts, rates)]
+    staging_pairs(batch)
+    launch_bounds(batch, rates)
     for row in rows:  # the main path is now both paths: their launches add up
         row["launches"] = counts[row["name"]] + col_counts[row["name"]]
     print(json.dumps({"column_hash": {

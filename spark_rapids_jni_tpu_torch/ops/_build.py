@@ -30,8 +30,12 @@ _SIGNATURES = {
     "srt_mm_hash_long": (_P, _P, _U32, _P, _I64, _P),
     "srt_xx_hash_fixed4": (_P, _P, _U64, _P, _I64, _P),
     "srt_xx_hash_fixed8": (_P, _P, _U64, _P, _I64, _P),
+    # (chars, offsets[n+1], hash tensor or NULL, scalar hash, out, n, stream)
+    "srt_mm_hash_strings": (_P, _P, _P, _U32, _P, _I64, _P),
     # (chars, starts, lens, hash tensor or NULL, scalar hash, out, n, stream)
     "srt_mm_hash_bytes": (_P, _P, _P, _P, _U32, _P, _I64, _P),
+    # (hi, lo, hash tensor or NULL, scalar hash, out, n, stream)
+    "srt_mm_hash_decimal128": (_P, _P, _P, _U32, _P, _I64, _P),
 }
 
 #: nvcc's output of the build this process ran (ptxas register counts), or

@@ -1,11 +1,14 @@
 """Spark hash contributions: CUDA kernels and their plain versions.
 
 The port of ``spark_rapids_jni_tpu/ops/hash_pallas.py``'s kernels: the four
-elementwise fixed-width ones, and the byte-string murmur3 kernel
-(``mm_hash_bytes``, which also takes over the tail that the TPU path ran
-beside its word kernel).  Each public ``*_cuda`` wrapper takes 1-D tensors of
-values (for ``mm_hash_bytes``: a byte buffer and each row's start and length)
-and a running hash or seed (a tensor with one per row, or a python int):
+elementwise fixed-width ones, and the byte-string murmur3 kernel, which also
+takes over the tail that the TPU path ran beside its word kernel, as three
+entry points that read their bytes three ways: ``mm_hash_strings`` (a string
+column's chars and Arrow offsets), ``mm_hash_bytes`` (a byte buffer and each
+row's start and length) and ``mm_hash_decimal128`` (a DECIMAL128 column's
+``hi``/``lo`` words, hashed as their Java bytes).  Each public ``*_cuda``
+wrapper takes 1-D tensors of values and a running hash or seed (a tensor with
+one per row, or a python int):
 
 - on a CUDA tensor it launches its kernel from ``csrc/hash_kernels.cu``
   (built on first use, see ``_build``) on the current stream, counts the
@@ -24,6 +27,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
+
+from spark_rapids_jni_tpu_torch.columnar.buckets import length_buckets
 
 Seed = Union[int, torch.Tensor]
 
@@ -47,7 +52,9 @@ launches: Dict[str, int] = {
     "mm_hash_long": 0,
     "mm_hash_int": 0,
     "xx_hash_fixed4": 0,
+    "mm_hash_strings": 0,
     "mm_hash_bytes": 0,
+    "mm_hash_decimal128": 0,
 }
 
 
@@ -177,38 +184,149 @@ def xx_hash_fixed8_torch(v: torch.Tensor, seed: Seed) -> torch.Tensor:
     return _xx_finalize(xx_round8(_seed_plus(seed, XX_P5 + 8), v))
 
 
+def _round32(h, k):
+    return _mm_mix_h1(h, _mm_mix_k1(k))
+
+
+def _funnel(cur: torch.Tensor, nxt: torch.Tensor, sh: torch.Tensor) -> torch.Tensor:
+    """CUDA's ``__funnelshift_r(cur, nxt, sh)`` on u32 words held in int64:
+    the 32 bits of ``nxt:cur`` from bit ``sh`` (0, 8, 16 or 24) up."""
+    return (((nxt << 32) | cur) >> sh) & M32
+
+
+def _word_buffer(chars: torch.Tensor) -> torch.Tensor:
+    """``chars`` as int32 words, zero-filled to whole words: word q holds
+    bytes 4q .. 4q+3, little-endian."""
+    buf = torch.zeros(max(4, -(-chars.numel() // 4) * 4), dtype=torch.uint8,
+                      device=chars.device)
+    buf[:chars.numel()] = chars
+    return buf.view(torch.int32)
+
+
+def _mm_spans_class(words: torch.Tensor, s: torch.Tensor, ln: torch.Tensor,
+                    hh: torch.Tensor, width: int) -> torch.Tensor:
+    """``mm_hash_row`` of ``hash_kernels.cu`` over rows of at most ``width``
+    bytes, in lockstep, before fmix: each word is the funnel shift of the two
+    aligned words it straddles, and every next aligned word's position is
+    clamped to the word that holds the row's last byte (on the card only the
+    last full word's and the tail's are: before them the clamp never bites).
+    ``s``/``ln`` int64 byte positions and lengths, ``hh`` u32 in int64."""
+    top = words.numel() - 1
+
+    def load(q):  # clamped only to stay in the buffer on rows that read nothing
+        return _u32(words[torch.clamp(q, 0, top)])
+
+    sh = (s & 3) * 8
+    q0 = s >> 2
+    qlast = (s + ln - 1) >> 2
+    nw = ln >> 2
+    steps = width // 4
+    every = int(nw.min()) if s.numel() else 0  # words that every row of the class has
+    chunk = max(1, (1 << 24) // max(1, s.numel()))  # words gathered at once
+    for i0 in range(0, steps, chunk):
+        c = min(chunk, steps - i0)
+        q = q0[:, None] + torch.arange(i0, i0 + c + 1, device=s.device)
+        w = load(torch.minimum(q, qlast[:, None]))
+        k1 = _mm_mix_k1(_funnel(w[:, :-1], w[:, 1:], sh[:, None]))
+        live = torch.arange(i0, i0 + c, device=s.device) < nw[:, None]
+        for i in range(c):
+            upd = _mm_mix_h1(hh, k1[:, i])
+            hh = upd if i0 + i < every else torch.where(live[:, i], upd, hh)
+    qt = torch.minimum(q0 + nw, qlast)  # the word that holds the first tail byte
+    bits = _funnel(load(qt), load(torch.minimum(qt + 1, qlast)), sh)
+    for j in range(3):
+        b = (bits >> (8 * j)) & 0xFF
+        sbyte = ((b ^ 0x80) - 0x80) & M32  # the byte as a signed int, as u32 bits
+        hh = torch.where(j < (ln & 3), _round32(hh, sbyte), hh)
+    return hh
+
+
+def _mm_hash_spans(name: str, chars: torch.Tensor, s: torch.Tensor, ln: torch.Tensor,
+                   h: Seed) -> torch.Tensor:
+    """Spark Murmur3.hashUnsafeBytes contribution of ``chars[s[i] : s[i] +
+    ln[i]]`` per row (int64 ``s``, ``ln``), walked one power-of-two length
+    class at a time so that one long row does not set the number of steps for
+    every row.  A span that does not lie within ``chars`` raises ValueError."""
+    n = s.shape[0]
+    if n and bool(((s < 0) | (ln < 0) | (s + ln > chars.numel())).any()):
+        raise ValueError(f"{name}: a span does not lie within chars")
+    hh = _hash_in32(h)
+    hh = torch.full((n,), hh, dtype=torch.int64, device=s.device) if isinstance(hh, int) \
+        else hh.clone()
+    words = _word_buffer(chars)
+    for width, rows in length_buckets(ln):
+        hh[rows] = _mm_spans_class(words, s[rows], ln[rows], hh[rows], width)
+    return _as_int32(_mm_fmix(hh, ln))
+
+
 def mm_hash_bytes_torch(chars: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
                         h: Seed) -> torch.Tensor:
-    """Spark Murmur3.hashUnsafeBytes contribution of ``chars[starts[i] :
-    starts[i] + lens[i]]`` per row: one round per aligned little-endian word,
-    one per sign-extended tail byte, then fmix(len).  ``chars`` uint8,
-    ``starts``/``lens`` int32, ``h`` int32 bits or int -> int32 bits.
+    """Plain version of ``mm_hash_bytes``: Spark Murmur3.hashUnsafeBytes
+    contribution of ``chars[starts[i] : starts[i] + lens[i]]`` per row (one
+    round per aligned little-endian word, one per sign-extended tail byte,
+    then fmix(len)).  ``chars`` uint8, ``starts``/``lens`` int32, ``h`` int32
+    bits or int -> int32 bits.  A span outside ``chars`` raises ValueError."""
+    return _mm_hash_spans("mm_hash_bytes", chars, starts.to(torch.int64),
+                          lens.to(torch.int64), h)
 
-    Rows advance in lockstep over word index w, each masked by its own word
-    count, so the loop runs to the longest row's words.  A span that does not
-    lie within ``chars`` raises ValueError."""
-    n = starts.shape[0]
-    buf = chars if chars.numel() else torch.zeros(1, dtype=torch.uint8, device=chars.device)
-    last = buf.numel() - 1
-    s = starts.to(torch.int64)
-    ln = lens.to(torch.int64)
-    if n and bool(((s < 0) | (ln < 0) | (s + ln > chars.numel())).any()):
-        raise ValueError("mm_hash_bytes: a span does not lie within chars")
-    nwords = ln // 4
+
+def mm_hash_strings_torch(chars: torch.Tensor, offsets: torch.Tensor, h: Seed) -> torch.Tensor:
+    """Plain version of ``mm_hash_strings``: the same contribution for row i
+    = ``chars[offsets[i] : offsets[i+1]]`` of a string column.  ``chars``
+    uint8, ``offsets`` int32 [n+1], ``h`` int32 bits or int -> int32 bits."""
+    offs = offsets.to(torch.int64)
+    return _mm_hash_spans("mm_hash_strings", chars, offs[:-1], offs[1:] - offs[:-1], h)
+
+
+def _clz64(x: torch.Tensor) -> torch.Tensor:
+    """CUDA's ``__clzll`` of u64 bits held in int64 (64 for 0), by binary
+    search over the leading bits."""
+    n = torch.zeros_like(x)
+    for r in (32, 16, 8, 4, 2, 1):
+        zero = _shr64(x, 64 - r) == 0
+        n = n + torch.where(zero, r, 0)
+        x = torch.where(zero, x << r, x)
+    return n + (x == 0).to(torch.int64)
+
+
+def _bswap32(x: torch.Tensor) -> torch.Tensor:
+    """CUDA's ``__byte_perm(x, 0, 0x0123)`` on u32 values held in int64."""
+    return ((x & 0xFF) << 24) | (((x >> 8) & 0xFF) << 16) | (((x >> 16) & 0xFF) << 8) \
+        | ((x >> 24) & 0xFF)
+
+
+def mm_hash_decimal128_torch(hi: torch.Tensor, lo: torch.Tensor, h: Seed) -> torch.Tensor:
+    """Plain version of ``mm_hash_decimal128``: Spark Murmur3.hashUnsafeBytes
+    contribution of the Java bytes of each 128-bit value ``hi:lo``
+    (``BigDecimal.unscaledValue().toByteArray()``), built as the kernel builds
+    them: the length from the count of leading bits, the value shifted to the
+    top of 128 bits, big-endian words as byte-swapped 32-bit lanes.  ``hi``
+    int64, ``lo`` int64 holding the low word's bits, ``h`` int32 bits or int
+    -> int32 bits."""
+    sign = hi >> 63
+    mh, ml = hi ^ sign, lo ^ sign
+    clz = torch.where(mh != 0, _clz64(mh), 64 + _clz64(ml))
+    length = (128 - clz + 8) >> 3  # significant bits + sign, in bytes: 1..16
+    s = 8 * (16 - length)
+    # the kernel's three cases, every shift kept in 0..63
+    mid = torch.clamp(s, 1, 63)
+    rmid = 64 - mid
+    th_mid = (hi << mid) | ((lo >> rmid) & ((torch.ones_like(lo) << (64 - rmid)) - 1))
+    th = torch.where(s == 0, hi, torch.where(s >= 64, lo << torch.clamp(s - 64, 0, 63), th_mid))
+    tl = torch.where(s == 0, lo, torch.where(s >= 64, 0, lo << mid))
+    lanes = [_shr64(th, 32), th & M32, _shr64(tl, 32), tl & M32]
+    nw = length >> 2
     hh = _hash_in32(h)
     if isinstance(hh, int):
-        hh = torch.full((n,), hh, dtype=torch.int64, device=starts.device)
-    lane = torch.arange(4, dtype=torch.int64, device=starts.device)
-    for w in range(int(nwords.max()) if n else 0):
-        idx = torch.clamp(s[:, None] + (4 * w) + lane, 0, last)
-        word = _u32(buf[idx].view(torch.int32).flatten())  # little-endian
-        hh = torch.where(w < nwords, _mm_mix_h1(hh, _mm_mix_k1(word)), hh)
-    tail = s + 4 * nwords
+        hh = torch.full(hi.shape, hh, dtype=torch.int64, device=hi.device)
+    for w in range(4):
+        hh = torch.where(w < nw, _round32(hh, _bswap32(lanes[w])), hh)
+    tail = torch.where(nw == 0, lanes[0], torch.where(nw == 1, lanes[1],
+                                                      torch.where(nw == 2, lanes[2], lanes[3])))
     for j in range(3):
-        b = buf[torch.clamp(tail + j, 0, last)].to(torch.int64)
-        sbyte = ((b ^ 0x80) - 0x80) & M32  # the byte as a signed int, as u32 bits
-        hh = torch.where(4 * nwords + j < ln, _mm_mix_h1(hh, _mm_mix_k1(sbyte)), hh)
-    return _as_int32(_mm_fmix(hh, ln))
+        b = (tail >> (24 - 8 * j)) & 0xFF
+        hh = torch.where(j < (length & 3), _round32(hh, ((b ^ 0x80) - 0x80) & M32), hh)
+    return _as_int32(_mm_fmix(hh, length))
 
 
 # ---- wrappers ---------------------------------------------------------------
@@ -305,12 +423,41 @@ def xx_hash_fixed8_cuda(v: torch.Tensor, seed: Seed) -> torch.Tensor:
                    v.shape[0])
 
 
+def _check_same_device(name: str, *tensors: torch.Tensor) -> None:
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: tensors on " + ", ".join(str(t.device) for t in tensors))
+
+
+def mm_hash_strings_cuda(chars: torch.Tensor, offsets: torch.Tensor, h: Seed) -> torch.Tensor:
+    """Port of hash_pallas.mm_bytes_words_pallas with hashing._mm_bytes_tail
+    for a string or binary column: the whole murmur3 hashUnsafeBytes
+    contribution of row i = ``chars[offsets[i] : offsets[i+1]]``.  ``chars``
+    uint8, ``offsets`` int32 [n+1], ``h`` int32-bit running hash (tensor of n
+    or int) -> int32 bits [n].
+
+    The offsets must start at 0 or more, never decrease and end within
+    ``chars``.  The plain version checks that; on the card it is not checked
+    per launch (a reduction and a host sync each time): columns check their
+    offsets where they are built."""
+    _check_values("mm_hash_strings", chars, torch.uint8)
+    _check_values("mm_hash_strings", offsets, torch.int32)
+    if offsets.shape[0] < 1:
+        raise TypeError("mm_hash_strings: offsets must hold n+1 >= 1 entries")
+    _check_same_device("mm_hash_strings", chars, offsets)
+    hv, hs = _check_aux("mm_hash_strings", h, offsets[1:], torch.int32)
+    if offsets.device.type == "cpu":
+        return mm_hash_strings_torch(chars, offsets, h)
+    return _launch("mm_hash_strings", "srt_mm_hash_strings", [chars, offsets], hv,
+                   hs & M32, torch.int32, offsets.shape[0] - 1)
+
+
 def mm_hash_bytes_cuda(chars: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
                        h: Seed) -> torch.Tensor:
-    """Port of hash_pallas.mm_bytes_words_pallas with hashing._mm_bytes_tail:
-    the whole murmur3 hashUnsafeBytes contribution of ``chars[starts[i] :
-    starts[i] + lens[i]]`` per row.  ``chars`` uint8, ``starts``/``lens``
-    int32, ``h`` int32-bit running hash (tensor or int) -> int32 bits.
+    """Port of hash_pallas.mm_bytes_words_pallas with hashing._mm_bytes_tail
+    for arbitrary spans: the whole murmur3 hashUnsafeBytes contribution of
+    ``chars[starts[i] : starts[i] + lens[i]]`` per row.  ``chars`` uint8,
+    ``starts``/``lens`` int32, ``h`` int32-bit running hash (tensor or int)
+    -> int32 bits.
 
     Every span must lie within ``chars``.  The plain version checks that; on
     the card it is not checked per launch, which would cost a reduction and
@@ -322,11 +469,28 @@ def mm_hash_bytes_cuda(chars: torch.Tensor, starts: torch.Tensor, lens: torch.Te
     if lens.shape != starts.shape:
         raise TypeError(f"mm_hash_bytes: lens of shape {tuple(lens.shape)}, starts of "
                         f"shape {tuple(starts.shape)}")
-    if not chars.device == starts.device == lens.device:
-        raise ValueError(f"mm_hash_bytes: chars on {chars.device}, starts on "
-                         f"{starts.device}, lens on {lens.device}")
+    _check_same_device("mm_hash_bytes", chars, starts, lens)
     hv, hs = _check_aux("mm_hash_bytes", h, starts, torch.int32)
     if starts.device.type == "cpu":
         return mm_hash_bytes_torch(chars, starts, lens, h)
     return _launch("mm_hash_bytes", "srt_mm_hash_bytes", [chars, starts, lens], hv,
                    hs & M32, torch.int32, starts.shape[0])
+
+
+def mm_hash_decimal128_cuda(hi: torch.Tensor, lo: torch.Tensor, h: Seed) -> torch.Tensor:
+    """Port of hash_pallas.mm_bytes_words_pallas with hashing._mm_bytes_tail
+    for a DECIMAL128 column: the murmur3 hashUnsafeBytes contribution of each
+    value's Java bytes, built on the card from ``hi`` (int64) and ``lo``
+    (int64 holding the low word's bits); ``h`` int32-bit running hash (tensor
+    or int) -> int32 bits."""
+    _check_values("mm_hash_decimal128", hi, torch.int64)
+    _check_values("mm_hash_decimal128", lo, torch.int64)
+    if lo.shape != hi.shape:
+        raise TypeError(f"mm_hash_decimal128: lo of shape {tuple(lo.shape)}, hi of "
+                        f"shape {tuple(hi.shape)}")
+    _check_same_device("mm_hash_decimal128", hi, lo)
+    hv, hs = _check_aux("mm_hash_decimal128", h, hi, torch.int32)
+    if hi.device.type == "cpu":
+        return mm_hash_decimal128_torch(hi, lo, h)
+    return _launch("mm_hash_decimal128", "srt_mm_hash_decimal128", [hi, lo], hv, hs & M32,
+                   torch.int32, hi.shape[0])

@@ -16,8 +16,12 @@
 Each fixed-width contribution, and murmur3 over bytes, goes through a wrapper
 of ``hash_cuda``, which launches the CUDA kernel for a tensor on the card and
 runs the plain version for a tensor on the CPU: the device of the data
-decides, nothing else.  xxhash64 over bytes has no kernel in either package
-and is plain torch here.
+decides, nothing else.  Murmur3 over bytes takes one of three entry points by
+how the bytes lie: a string column through its offsets (``mm_hash_strings``),
+a decimal128 column from its (hi, lo) words (``mm_hash_decimal128``), and the
+gathered spans of a list walk's element step (``mm_hash_bytes``).  xxhash64
+over bytes has no kernel in either package and is plain torch here, over the
+decimals' Java bytes built in torch.
 """
 
 from __future__ import annotations
@@ -45,8 +49,10 @@ from spark_rapids_jni_tpu_torch.ops.hash_cuda import (
     _rotl64,
     _xx_finalize,
     mm_hash_bytes_cuda,
+    mm_hash_decimal128_cuda,
     mm_hash_int_cuda,
     mm_hash_long_cuda,
+    mm_hash_strings_cuda,
     signed32,
     signed64,
     xx_hash_fixed4_cuda,
@@ -61,7 +67,9 @@ HashInput = Union[Column, StringColumn, Decimal128Column, StructColumn, ListColu
 
 _P1, _P2, _P4, _P5 = (signed64(p) for p in (XX_P1, XX_P2, XX_P4, XX_P5))
 
-_MAX_DECIMAL_ROWS = 1 << 27  # 16 * rows must stay below 2**31: the kernel's starts are int32
+# xxhash64 over decimals walks their Java bytes as 16-byte rows with int32
+# starts, so 16 * rows must stay below 2**31
+_MAX_DECIMAL_ROWS = 1 << 27
 
 
 def _normalize_float_bits(col: Column) -> torch.Tensor:
@@ -181,7 +189,8 @@ def _decimal128_java_bytes(col: Decimal128Column):
 
 
 def _decimal128_spans(col: Decimal128Column):
-    """(chars, starts, lens) of the Java bytes, one 16-byte row each."""
+    """(chars, starts, lens) of the Java bytes, one 16-byte row each, for
+    xxhash64 (murmur3 builds them on the card: ``mm_hash_decimal128``)."""
     if col.size > _MAX_DECIMAL_ROWS:
         raise ValueError(f"hashing a decimal128 column of {col.size} rows: at most "
                          f"{_MAX_DECIMAL_ROWS}, so that its 16-byte rows' int32 starts "
@@ -189,10 +198,6 @@ def _decimal128_spans(col: Decimal128Column):
     be, lens = _decimal128_java_bytes(col)
     starts = 16 * torch.arange(col.size, dtype=torch.int32, device=be.device)
     return be.reshape(-1), starts, lens
-
-
-def _string_spans(col: StringColumn):
-    return col.chars, col.offsets[:-1], col.lengths()
 
 
 # ---------------------------------------------------------------------------
@@ -203,9 +208,13 @@ def _string_spans(col: StringColumn):
 def _hash_element(col, h: torch.Tensor, *, mm: bool) -> torch.Tensor:
     """One column's contribution: h' per row, ignoring validity (caller masks)."""
     if isinstance(col, StringColumn):
-        return _hash_bytes(*_string_spans(col), h, mm=mm)
+        if mm:
+            return mm_hash_strings_cuda(col.chars, col.offsets.contiguous(), h)
+        return _xx_hash_bytes(col.chars, col.offsets[:-1], col.lengths(), h)
     if isinstance(col, Decimal128Column):
-        return _hash_bytes(*_decimal128_spans(col), h, mm=mm)
+        if mm:
+            return mm_hash_decimal128_cuda(col.hi.contiguous(), col.lo.contiguous(), h)
+        return _xx_hash_bytes(*_decimal128_spans(col), h)
     kind = col.dtype.kind
     if kind in (Kind.FLOAT32, Kind.FLOAT64):
         bits = _normalize_float_bits(col)

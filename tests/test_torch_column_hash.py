@@ -588,9 +588,12 @@ def test_mm_hash_bytes_wrapper_refuses_bad_spans_on_cpu(starts, lens):
 
 
 def test_decimal128_hash_refuses_rows_whose_starts_would_wrap(monkeypatch):
-    col = tc.decimal128_column([1, 2, 3], 38, 2, device="cpu")
+    # xxhash64 walks the Java bytes as 16-byte rows with int32 starts and
+    # refuses; murmur3 builds them per row from (hi, lo) and has no such cap
+    vals = [1, -(1 << 100), 3]
+    col = tc.decimal128_column(vals, 38, 2, device="cpu")
     monkeypatch.setattr(hashing, "_MAX_DECIMAL_ROWS", 2)
     with pytest.raises(ValueError, match="int32 starts"):
-        murmur_hash32([col])
-    with pytest.raises(ValueError, match="int32 starts"):
         xxhash64([col])
+    assert murmur_hash32([col], seed=42).to_list() == \
+        jax_murmur_hash32([jc.decimal128_column(vals, 38, 2)], seed=42).to_list()
