@@ -47,9 +47,23 @@ port package beside it.  Otherwise it:
    alternating pairs (a ``staging_pairs`` line); times every byte-kernel
    launch of the murmur calls at its own shape beside its bound (a
    ``launch_bounds`` line); times the six whole calls with their peak
-   memory and prints a ``column_hash`` line; then the
-   card's name and power limit, the ``kernels`` line (all seven kernels)
-   and, last, the ``ok`` line.
+   memory and prints a ``column_hash`` line;
+9. drives the distributed path with the launch counters at 0 again, on a
+   (1, 1) mesh over a one-rank NCCL group (NCCL will not put two ranks on
+   one card): ``make_distributed_query_step`` on the step's 2**26 rows,
+   ``make_distributed_q97`` on TPC-DS SF10's q97 tables (28,000,000 rows
+   each), ``make_distributed_q97_columns`` on them with 10% null customers,
+   once with enough shuffle capacity and once with a quarter of it, and
+   ``shuffle_table`` over 2**22 rows of an INT32 key, a nullable
+   DECIMAL(38,2) and a VARCHAR(100) padded to 100 bytes; each part must
+   launch exactly its expected kernels; holds the step bit for bit against
+   ``local_query_step``, both q97 forms against a numpy oracle (and q97
+   against ``q97_local``), the overflow run's drops, and every row of the
+   table against what was sent; holds ``mm_hash_long`` against its plain
+   version at the q97 paths' shapes; times every part and the step's phases
+   and prints a ``distributed`` line; then the card's name and power limit,
+   the ``kernels`` line (all seven kernels, their launches over the three
+   paths) and, last, the ``ok`` line.
 
 Every check that fails raises, and the script then exits non-zero.
 """
@@ -904,6 +918,336 @@ def time_column_hash(batch):
     return out
 
 
+# ---- the distributed path -------------------------------------------------
+
+Q97_SF = 10  # TPC-DS scale factor of the q97 tables: 28,000,000 rows per fact table
+N_TABLE = 1 << 22  # rows of the table shuffle
+TABLE_WIDTH = 100  # its VARCHAR(100)'s padded width
+NULL_FRAC = 0.1  # null customer_sk of the nullable q97, null decimals of the table
+# part -> the kernel launches it must make, and no others
+DIST_LAUNCHES = {
+    "step": {"xx_hash_fixed8": 1, "mm_hash_long": 3},  # buckets; bloom x2, partition_of
+    "q97": {"mm_hash_long": 1},  # partition_of
+    "q97_columns": {"mm_hash_long": 1},
+    "q97_columns_overflow": {"mm_hash_long": 1},
+    "table_shuffle": {},  # placed by key mod dp, as the JAX package's dry run places it
+}
+
+
+def init_single_rank():
+    """A one-rank NCCL group on card 0 over a FileStore in a temporary
+    directory, and the (1, 1) mesh over it; returns (mesh, the directory)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from spark_rapids_jni_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: bootstrap on loopback
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp.name, "store"), 1),
+                            rank=0, world_size=1)
+    return make_mesh((1, 1)), tmp
+
+
+def distributed_batch(device):
+    """The distributed phase's inputs: the step's batch (make_example_batch,
+    seed 0), the q97 tables at Q97_SF (generate_q97_tables, seed 42) with
+    NULL_FRAC null customers drawn from numpy seed 97, and the table shuffle's
+    INT32 key, nullable DECIMAL(38,2) and VARCHAR(100) padded to its width."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+    from spark_rapids_jni_tpu_torch.models import make_example_batch
+    from spark_rapids_jni_tpu_torch.models.tpcds import generate_q97_tables
+    from spark_rapids_jni_tpu_torch.parallel import pad_strings
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    keys, values = make_example_batch(N, seed=0, device=device)
+    store, catalog = generate_q97_tables(sf=Q97_SF, seed=42)
+    rng = np.random.RandomState(97)
+    s_cv = rng.rand(len(store[0])) >= NULL_FRAC
+    c_cv = rng.rand(len(catalog[0])) >= NULL_FRAC
+    cols = (c.Column(t(store[0]), t(s_cv), c.INT32), c.Column(t(store[1]), None, c.INT32),
+            c.Column(t(catalog[0]), t(c_cv), c.INT32), c.Column(t(catalog[1]), None, c.INT32),
+            torch.ones(len(store[0]), dtype=torch.bool, device=device),
+            torch.ones(len(catalog[0]), dtype=torch.bool, device=device))
+    dec = dataclasses.replace(_decimals(rng, N_TABLE, device),
+                              validity=t(rng.rand(N_TABLE) >= NULL_FRAC))
+    desc = _varchar(rng, N_TABLE, TABLE_WIDTH, NULL_FRAC, device)
+    table = {"k": c.Column(t(rng.randint(0, 2**31, N_TABLE).astype(np.int32)), None, c.INT32),
+             "d": dec, "s": pad_strings(desc, TABLE_WIDTH)}
+    return {"keys": keys, "values": values, "store": (t(store[0]), t(store[1])),
+            "catalog": (t(catalog[0]), t(catalog[1])), "cols": cols, "table": table,
+            "desc": desc, "host": {"store": store, "catalog": catalog, "s_cv": s_cv,
+                                   "c_cv": c_cv}}
+
+
+def _q97_capacity(b):
+    from spark_rapids_jni_tpu_torch.models.q97 import default_q97_capacity
+
+    return default_q97_capacity(len(b["host"]["store"][0]) + len(b["host"]["catalog"][0]), 1)
+
+
+def _distributed_calls(mesh, b, cfg):
+    """part -> zero-argument call of the port's distributed entry points on
+    batch ``b`` over ``mesh``."""
+    from spark_rapids_jni_tpu_torch.models import (
+        make_distributed_q97,
+        make_distributed_q97_columns,
+        make_distributed_query_step,
+    )
+    from spark_rapids_jni_tpu_torch.parallel import DATA_AXIS, axis_size, shuffle_table
+
+    cap = _q97_capacity(b)
+    dp = axis_size(mesh, DATA_AXIS)
+    key = b["table"]["k"].data
+    return {
+        "step": lambda: make_distributed_query_step(mesh, cfg)(b["keys"], b["values"]),
+        "q97": lambda: make_distributed_q97(mesh, cap)(*b["store"], *b["catalog"]),
+        "q97_columns": lambda: make_distributed_q97_columns(mesh, cap)(*b["cols"]),
+        "q97_columns_overflow": lambda: make_distributed_q97_columns(mesh, cap // 4)(*b["cols"]),
+        "table_shuffle": lambda: shuffle_table(b["table"], (key % dp).to(torch.int32),
+                                               N_TABLE // dp, mesh),
+    }
+
+
+def distributed_path(mesh, b, cfg):
+    """The distributed path with the counters at 0; returns the counts of the
+    whole path, each part's own, and the outputs."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    torch.cuda.synchronize()
+    hash_cuda.reset_launches()
+    per_part, outs = {}, {}
+    for part, call in _distributed_calls(mesh, b, cfg).items():
+        before = dict(hash_cuda.launches)
+        outs[part] = call()
+        torch.cuda.synchronize()
+        per_part[part] = {k: v - before[k] for k, v in hash_cuda.launches.items() if v > before[k]}
+    counts = dict(hash_cuda.launches)
+    print(json.dumps({"distributed_launches": {"total": counts, "per_part": per_part}}))
+    for part, want in DIST_LAUNCHES.items():
+        if per_part[part] != want:
+            raise AssertionError(f"distributed {part} launched {per_part[part]}, not {want}")
+    return counts, per_part, outs
+
+
+def _packed(cust, item):
+    return (cust.astype(np.int64) << 32) | (item.astype(np.int64) & 0xFFFFFFFF)
+
+
+def _distinct(a):
+    """The sorted distinct values of ``a``, from ``np.sort`` (numpy 2.3's
+    ``np.unique`` hashes, and took 118 s on 28M int64 on the card's host)."""
+    a = np.sort(a)
+    return a[np.concatenate(([True], a[1:] != a[:-1]))] if a.size else a
+
+
+def q97_oracle(store, catalog, s_valid=None, c_valid=None):
+    """(store_only, catalog_only, both) with numpy: each side's distinct packed
+    (customer, item) pairs and their intersection.  Where a side has null
+    customers, each distinct (NULL, item) is one more group of that side that
+    joins nothing (SQL: DISTINCT groups NULLs, NULL never equals NULL)."""
+    sides = []
+    for (cust, item), valid in ((store, s_valid), (catalog, c_valid)):
+        if valid is None:
+            sides.append((_distinct(_packed(cust, item)), 0))
+        else:
+            sides.append((_distinct(_packed(cust[valid], item[valid])),
+                          _distinct(item[~valid]).size))
+    (s, s_null), (c, c_null) = sides
+    at = np.minimum(np.searchsorted(c, s), max(c.size - 1, 0))  # s and c are sorted
+    both = int((c[at] == s).sum()) if c.size else 0
+    return s.size - both + s_null, c.size - both + c_null, both
+
+
+def _q97_counts(out):
+    return int(out.store_only), int(out.catalog_only), int(out.both)
+
+
+def check_distributed(b, cfg, outs):
+    """Every part's output checked: the step bit for bit against
+    local_query_step on the same batch and device, with the dry run's
+    invariants; q97 and its nullable form against the numpy oracle (and q97
+    against q97_local), the overflow run's drops; the table's every row,
+    limb, byte, length and validity, and its materialized strings.  Returns
+    the oracle's counts and seconds."""
+    from spark_rapids_jni_tpu_torch.models import local_query_step, q97_local
+    from spark_rapids_jni_tpu_torch.parallel import materialize_strings
+
+    step = outs["step"]
+    local = local_query_step(b["keys"], b["values"], cfg)
+    for name, g, w in zip(("bucket_sums", "bucket_counts", "bloom_bits", "probe_hits"),
+                          step, local):
+        _require_equal(f"distributed step {name} vs local_query_step", g, w)
+    n = b["keys"].shape[0]
+    got = (int(step.total_rows), int(step.dropped), int(step.bucket_counts.sum()),
+           int(step.probe_hits))
+    if got != (n, 0, n, n):
+        raise AssertionError(f"distributed step (total_rows, dropped, counts, probe_hits) "
+                             f"{got} != {(n, 0, n, n)}")
+
+    h = b["host"]
+    t0 = time.perf_counter()
+    want = q97_oracle(h["store"], h["catalog"])
+    want_null = q97_oracle(h["store"], h["catalog"], h["s_cv"], h["c_cv"])
+    oracle_s = time.perf_counter() - t0
+    q, qn, qo = outs["q97"], outs["q97_columns"], outs["q97_columns_overflow"]
+    local_q = _q97_counts(q97_local(b["store"], b["catalog"]))
+    if not (_q97_counts(q) == want == local_q and int(q.dropped) == 0):
+        raise AssertionError(f"q97 {_q97_counts(q)} (dropped {int(q.dropped)}), q97_local "
+                             f"{local_q}, oracle {want}")
+    if not (_q97_counts(qn) == want_null and int(qn.dropped) == 0):
+        raise AssertionError(f"nullable q97 {_q97_counts(qn)} (dropped {int(qn.dropped)}) != "
+                             f"oracle {want_null}")
+    rows = len(h["store"][0]) + len(h["catalog"][0])
+    if int(qo.dropped) != rows - _q97_capacity(b) // 4:  # one rank keeps the first cap rows
+        raise AssertionError(f"overflow run dropped {int(qo.dropped)}, not "
+                             f"{rows - _q97_capacity(b) // 4}")
+
+    tab, sent = outs["table_shuffle"], b["table"]
+    if not bool(tab.valid.all()) or int(tab.dropped) != 0:
+        raise AssertionError("table shuffle: a row did not arrive")
+    k, d, s = (tab.columns[x] for x in ("k", "d", "s"))
+    for what, g, w in (("key", k.data, sent["k"].data), ("key validity", k.validity, tab.valid),
+                       ("decimal hi", d.hi, sent["d"].hi), ("decimal lo", d.lo, sent["d"].lo),
+                       ("decimal validity", d.validity, sent["d"].validity),
+                       ("string bytes", s.bytes, sent["s"].bytes),
+                       ("string lengths", s.lengths, sent["s"].lengths),
+                       ("string validity", s.validity, sent["s"].validity)):
+        _require_equal(f"table shuffle {what}", g, w)
+    back = materialize_strings(s)
+    desc = b["desc"]
+    lens = torch.where(desc.validity, desc.lengths(), 0)
+    offsets = torch.zeros(N_TABLE + 1, dtype=torch.int32, device=lens.device)
+    offsets[1:] = torch.cumsum(lens, 0)
+    _require_equal("materialized offsets", back.offsets, offsets)
+    _require_equal("materialized chars", back.chars,
+                   desc.chars[torch.repeat_interleave(desc.validity,
+                                                      desc.lengths().to(torch.int64))])
+    return {"q97": want, "q97_columns": want_null, "oracle_s": oracle_s}
+
+
+def _timed(fn) -> dict:
+    """``fn``'s median time (``_time_ms``) and the peak device memory while it
+    runs, beside what was resident before."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return {"ms": _time_ms(fn), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "resident_bytes": resident}
+
+
+def distributed_kernel_checks(b):
+    """mm_hash_long against its plain version at the q97 paths' shapes (the
+    placement hash of the composite keys and of the nullable form's mixed
+    pair keys, seed 42); the step's launches have the kernels phase's shape."""
+    from spark_rapids_jni_tpu_torch.models.q97 import _GOLDEN, _composite_key, _pair_key
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    keys = torch.cat([_composite_key(*b["store"]), _composite_key(*b["catalog"])])
+    pairs = [_pair_key(cu.data, cu.is_valid(), it.data, it.is_valid(), side)
+             for cu, it, side in ((b["cols"][0], b["cols"][1], 1), (b["cols"][2], b["cols"][3], 0))]
+    k_hi = torch.cat([p[0] for p in pairs])
+    mixed = k_hi ^ (torch.cat([p[1] for p in pairs]) * _GOLDEN)
+    out = {}
+    for what, v in (("q97 composite keys", keys), ("q97_columns mixed keys", mixed)):
+        out[what] = {"n": v.numel(), "max_abs_err": _require_equal(
+            f"mm_hash_long on the {what}", hash_cuda.mm_hash_long_cuda(v, 42),
+            hash_cuda.mm_hash_long_torch(v, 42))}
+    return out
+
+
+def time_distributed(mesh, b, cfg):
+    """Times and peak memory of each part, of local_query_step and q97_local
+    on the same inputs, and of the step's phases, each timed alone:
+    bloom build and probe, partition_of + bucket_by_partition, the whole
+    all_to_all_shuffle, its collectives alone (on buffers of the send
+    buffers' sizes), and the aggregation."""
+    from spark_rapids_jni_tpu_torch.models import local_query_step, q97_local
+    from spark_rapids_jni_tpu_torch.models.nds import _aggregate, _sharded_bloom
+    from spark_rapids_jni_tpu_torch.parallel import (
+        DATA_AXIS,
+        all_to_all_shuffle,
+        axis_group,
+        axis_size,
+        bucket_by_partition,
+        materialize_strings,
+        partition_of,
+    )
+    from spark_rapids_jni_tpu_torch.parallel.shuffle import _exchange
+
+    calls = _distributed_calls(mesh, b, cfg)
+    out = {part: _timed(calls[part]) for part in calls if part != "q97_columns_overflow"}
+    out["local_query_step"] = _timed(lambda: local_query_step(b["keys"], b["values"], cfg))
+    out["q97_local"] = _timed(lambda: q97_local(b["store"], b["catalog"]))
+    shuffled = calls["table_shuffle"]()
+    out["materialize_strings"] = _timed(lambda: materialize_strings(shuffled.columns["s"]))
+    del shuffled
+
+    keys, values = b["keys"], b["values"]
+    dp, n = axis_size(mesh, DATA_AXIS), keys.shape[0]
+    part = partition_of(keys, dp)
+    cols = {"keys": keys, "values": values}
+    shuffled = all_to_all_shuffle(cols, part, n, mesh)
+    group = axis_group(mesh, DATA_AXIS)
+    valid = torch.ones(n, dtype=torch.bool, device=keys.device)
+
+    def exchange():
+        for x in (valid, keys, values):
+            _exchange(x, group)
+
+    out["step_phases_ms"] = {
+        "bloom": _time_ms(lambda: _sharded_bloom(keys, cfg, mesh)),
+        "partition_of+bucket_by_partition": _time_ms(
+            lambda: bucket_by_partition(partition_of(keys, dp), dp, n)),
+        "all_to_all_shuffle": _time_ms(lambda: all_to_all_shuffle(cols, part, n, mesh)),
+        "all_to_all": _time_ms(exchange),
+        "aggregate": _time_ms(lambda: _aggregate(shuffled, cfg)),
+    }
+    return out
+
+
+def distributed(cfg):
+    """The distributed phase on a (1, 1) mesh over a one-rank NCCL group:
+    inputs, the path with the counters at 0, the checks, the times; prints
+    the ``distributed`` line and returns the path's launch counts."""
+    import torch.distributed as dist
+
+    mesh, tmp = init_single_rank()
+    try:
+        t0 = time.perf_counter()
+        b = distributed_batch("cuda")
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts, per_part, outs = distributed_path(mesh, b, cfg)
+        want = check_distributed(b, cfg, outs)
+        kernel_checks = distributed_kernel_checks(b)
+        q, qn, qo = outs["q97"], outs["q97_columns"], outs["q97_columns_overflow"]
+        del outs
+        times = time_distributed(mesh, b, cfg)
+        h = b["host"]
+        print(json.dumps({"distributed": {
+            "mesh": [1, 1], "backend": dist.get_backend(), "launches": per_part,
+            "step": {"n": N, "cfg": cfg._asdict()},
+            "q97": {"sf": Q97_SF, "rows": [len(h["store"][0]), len(h["catalog"][0])],
+                    "capacity": _q97_capacity(b), "counts": _q97_counts(q)},
+            "q97_columns": {"null_frac": NULL_FRAC, "counts": _q97_counts(qn),
+                            "overflow": {"capacity": _q97_capacity(b) // 4,
+                                         "dropped": int(qo.dropped)}},
+            "table_shuffle": {"n": N_TABLE, "width": TABLE_WIDTH,
+                              "padded_bytes": N_TABLE * TABLE_WIDTH},
+            "oracle": want, "kernel_checks": kernel_checks, "times": times,
+            "batch_gen_s": gen_s}}))
+        return counts
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -939,13 +1283,16 @@ def main() -> int:
              decimal_kernel(batch, col_counts, rates)]
     staging_pairs(batch)
     launch_bounds(batch, rates)
-    for row in rows:  # the main path is now both paths: their launches add up
-        row["launches"] = counts[row["name"]] + col_counts[row["name"]]
     print(json.dumps({"column_hash": {
         "n": N_COL, "n_nested": N_NESTED,
         "chars_bytes": {k: int(batch[k].offsets[-1]) for k in ("id16", "desc")},
         "calls": time_column_hash(batch), "cpu_s": cpu_col_s, "batch_gen_s": gen_s,
         "spark_string_vector_cases": n_string_vectors}}))
+    del batch
+
+    dist_counts = distributed(cfg)
+    for row in rows:  # the main path is now all three paths: their launches add up
+        row["launches"] = counts[row["name"]] + col_counts[row["name"]] + dist_counts[row["name"]]
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ all valid) and lives on one device:
   the bits of the JAX package's uint64 low word;
 - strings and binary: Arrow ``chars[total]`` (uint8) + ``offsets[n+1]`` (int32).
   ``chars`` is exactly ``offsets[-1]`` bytes: the hash kernel reads each row's
-  bytes where they lie, so no padded view and no pow2 over-allocation;
+  bytes where they lie, so no pow2 over-allocation.  A dense padded view
+  (``padded`` / ``strings_from_padded``) serves only the table shuffle;
 - list: ``offsets[n+1]`` into a child column; struct: equal-length children.
 """
 
@@ -183,6 +184,25 @@ class StringColumn:
     def lengths(self) -> torch.Tensor:
         return self.offsets[1:] - self.offsets[:-1]
 
+    def max_len(self) -> int:
+        """The longest row's byte length (0 for no rows), read on the host."""
+        return int(self.lengths().max()) if self.size else 0
+
+    def padded(self, max_len: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Dense ``(bytes[n, max_len] uint8, lengths[n] int32)`` view: each row
+        right-padded with zeros (cut at ``max_len`` if longer).  ``max_len``
+        defaults to the longest row, and is at least 1."""
+        if max_len is None:
+            max_len = max(self.max_len(), 1)
+        lens = self.lengths()
+        pos = torch.arange(max_len, dtype=torch.int64, device=self.device)
+        in_row = pos[None, :] < lens[:, None]
+        if self.chars.numel() == 0:
+            return torch.zeros((self.size, max_len), dtype=torch.uint8, device=self.device), lens
+        idx = torch.clamp(self.offsets[:-1, None].to(torch.int64) + pos[None, :],
+                          max=self.chars.numel() - 1)
+        return torch.where(in_row, self.chars[idx], 0), lens
+
     def to_list(self):
         chars = self.chars.cpu().numpy().tobytes()
         offs = self.offsets.cpu().tolist()
@@ -313,6 +333,22 @@ def strings_from_arrays(chars, offsets, validity=None,
     valid = None if validity is None else torch.from_numpy(np.array(validity, dtype=bool)).to(dev)
     return StringColumn(torch.from_numpy(buf.copy()).to(dev), torch.from_numpy(offs.copy()).to(dev),
                         valid)
+
+
+def strings_from_padded(padded: torch.Tensor, lengths: torch.Tensor,
+                        validity: Optional[torch.Tensor] = None) -> StringColumn:
+    """Arrow layout from a dense padded view, the inverse of
+    :meth:`StringColumn.padded`: row i is the first ``lengths[i]`` bytes of
+    ``padded[i]``, every length in [0, width].  ``chars`` holds exactly the
+    rows' bytes, read in row order."""
+    n, width = padded.shape
+    lens = lengths.to(torch.int32)
+    if n and bool(((lens < 0) | (lens > width)).any()):
+        raise ValueError(f"strings_from_padded: lengths must lie in [0, {width}]")
+    offsets = torch.zeros((n + 1,), dtype=torch.int32, device=padded.device)
+    offsets[1:] = torch.cumsum(lens, 0, dtype=torch.int32)
+    in_row = torch.arange(width, device=padded.device)[None, :] < lens[:, None]
+    return StringColumn(padded[in_row], offsets, validity)
 
 
 def strings_from_bytes(values: Sequence[Optional[bytes]],

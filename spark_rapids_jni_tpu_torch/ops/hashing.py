@@ -46,6 +46,10 @@ from spark_rapids_jni_tpu_torch.ops.hash_cuda import (
     XX_P2,
     XX_P4,
     XX_P5,
+    _as_int32,
+    _mm_fmix,
+    _mm_mix_k1,
+    _rotl32,
     _rotl64,
     _xx_finalize,
     mm_hash_bytes_cuda,
@@ -313,6 +317,17 @@ def xxhash64_raw_int64(data: torch.Tensor,
                        seed: int = DEFAULT_XXHASH64_SEED) -> torch.Tensor:
     """xxhash64 of an int64 vector, as int64 holding the u64 bits."""
     return xx_hash_fixed8_cuda(data.to(torch.int64).contiguous(), seed & M64)
+
+
+def partition_mix32(data: torch.Tensor) -> torch.Tensor:
+    """Cheap 32-bit mix of an int64 key vector for shuffle placement, as int32
+    holding the u32 bits: murmur3's k1 mix of each half, the high one rotated
+    by 13, xor'd, then fmix32 with length 8.  Not Spark-compatible and never
+    user-visible: placement only needs every rank to agree.  It has no kernel
+    in either package; it is elementwise int64 torch on any device."""
+    v = data.to(torch.int64)
+    h = _mm_mix_k1(v & M32) ^ _rotl32(_mm_mix_k1((v >> 32) & M32), 13)
+    return _as_int32(_mm_fmix(h, 8))
 
 
 # ---------------------------------------------------------------------------

@@ -323,6 +323,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spark_rapids_jni_tpu_torch.ops.hashing\n"
         "import spark_rapids_jni_tpu_torch.ops._build, spark_rapids_jni_tpu_torch.ops.hash_cuda\n"
         "import spark_rapids_jni_tpu_torch.parallel, spark_rapids_jni_tpu_torch.models\n"
+        "import spark_rapids_jni_tpu_torch.parallel.mesh\n"
+        "import spark_rapids_jni_tpu_torch.parallel.shuffle\n"
+        "import spark_rapids_jni_tpu_torch.parallel.table_shuffle\n"
+        "import spark_rapids_jni_tpu_torch.models.nds, spark_rapids_jni_tpu_torch.models.q97\n"
+        "import spark_rapids_jni_tpu_torch.models.tpcds\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_mesh_ranks  # what spawned gloo ranks import\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.split('.')[0] == 'spark_rapids_jni_tpu')\n"

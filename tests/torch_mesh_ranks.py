@@ -1,0 +1,180 @@
+"""Jobs run on every rank of a gloo group on the CPU, for the port's
+distributed parity tests (``tests/test_torch_distributed.py``,
+``tests/test_torch_q97.py``).
+
+:func:`run_ranks` spawns one process per rank of a (dp, mp) mesh.  Each rank
+joins a gloo group through a ``file://`` rendezvous in the caller's work
+directory, builds the port's mesh over the CPU, runs the named jobs of
+:data:`JOBS` on its own data shard of the global numpy inputs, and saves
+what each job returns.  The caller gets one ``{label: {name: array}}`` dict
+per rank, in rank order (rank = d * mp + m).
+
+This module imports neither JAX nor the JAX package: spawned ranks import
+it afresh, and the JAX references stay in the test modules.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from spark_rapids_jni_tpu_torch import columnar as tc
+from spark_rapids_jni_tpu_torch.models import (
+    QueryStepConfig,
+    make_distributed_q97,
+    make_distributed_q97_columns,
+    make_distributed_query_step,
+)
+from spark_rapids_jni_tpu_torch.parallel import (
+    DATA_AXIS,
+    PaddedStrings,
+    all_to_all_shuffle,
+    axis_group,
+    axis_index,
+    axis_size,
+    make_mesh,
+    materialize_strings,
+    pad_strings,
+    shuffle_table,
+)
+
+Arrays = Dict[str, np.ndarray]
+JOBS: Dict[str, Callable] = {}
+
+
+def _job(fn):
+    JOBS[fn.__name__] = fn
+    return fn
+
+
+def _data_shard(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a global array sharded over ``data`` (replicated
+    over ``model``): the data index's block of dp equal leading blocks."""
+    n = x.shape[0] // axis_size(mesh, DATA_AXIS)
+    d = axis_index(mesh, DATA_AXIS)
+    return x[d * n:(d + 1) * n]
+
+
+def _shards(mesh, inputs: Arrays, *names) -> List[torch.Tensor]:
+    return [_data_shard(torch.from_numpy(inputs[n]), mesh) for n in names]
+
+
+def _numpy(out) -> Arrays:
+    return {k: v.numpy() for k, v in out._asdict().items()}
+
+
+@_job
+def step(mesh, inputs: Arrays, cfg: Tuple[int, int, int, int]) -> Arrays:
+    """make_distributed_query_step over this rank's keys and values."""
+    keys, values = _shards(mesh, inputs, "keys", "values")
+    return _numpy(make_distributed_query_step(mesh, QueryStepConfig(*cfg))(keys, values))
+
+
+@_job
+def shuffle(mesh, inputs: Arrays, capacity: int) -> Arrays:
+    """all_to_all_shuffle of an int64 column, a [n, 3] int32 column and a
+    bool column by ``part``, with ``row_valid``: the whole receive buffers."""
+    k, rows, flag, part, row_valid = _shards(mesh, inputs, "k", "rows", "flag", "part",
+                                             "row_valid")
+    res = all_to_all_shuffle({"k": k, "rows": rows, "flag": flag}, part, capacity, mesh,
+                             row_valid=row_valid)
+    return {**{f"col.{n}": c.numpy() for n, c in res.columns.items()},
+            "valid": res.valid.numpy(), "dropped": res.dropped.numpy()}
+
+
+@_job
+def table(mesh, inputs: Arrays, capacity: int) -> Arrays:
+    """shuffle_table of an INT32 key, a nullable DECIMAL(38,2) and a nullable
+    string column padded to its longest row, placed by key mod dp."""
+    dp = axis_size(mesh, DATA_AXIS)
+    strings = tc.strings_from_arrays(inputs["s_chars"], inputs["s_offsets"],
+                                     inputs["s_valid"], device="cpu")
+    ps = pad_strings(strings)
+    sb, sl, sv = (_data_shard(t, mesh) for t in ps)
+    key, hi, lo, dvalid = _shards(mesh, inputs, "key", "dec_hi", "dec_lo", "dec_valid")
+    ex = shuffle_table(
+        {"k": tc.Column(key, None, tc.INT32),
+         "d": tc.Decimal128Column(hi, lo, dvalid, tc.decimal(38, 2)),
+         "s": PaddedStrings(sb, sl, sv)},
+        (key % dp).to(torch.int32), capacity, mesh)
+    dropped = ex.dropped.clone()
+    dist.all_reduce(dropped, group=axis_group(mesh, DATA_AXIS))
+    d, s = ex.columns["d"], ex.columns["s"]
+    back = materialize_strings(s)
+    return {"k": ex.columns["k"].data.numpy(), "k_valid": ex.columns["k"].validity.numpy(),
+            "valid": ex.valid.numpy(), "d_hi": d.hi.numpy(), "d_lo": d.lo.numpy(),
+            "d_valid": d.validity.numpy(), "s_bytes": s.bytes.numpy(),
+            "s_lengths": s.lengths.numpy(), "s_valid": s.validity.numpy(),
+            "dropped": dropped.numpy(), "m_chars": back.chars.numpy(),
+            "m_offsets": back.offsets.numpy(), "m_valid": back.validity.numpy()}
+
+
+@_job
+def q97(mesh, inputs: Arrays, capacity: int, with_validity: bool = False) -> Arrays:
+    """make_distributed_q97 over this rank's shard of the two tables."""
+    names = ["s_cust", "s_item", "c_cust", "c_item"]
+    if with_validity:
+        names += ["s_valid", "c_valid"]
+    args = _shards(mesh, inputs, *names)
+    return _numpy(make_distributed_q97(mesh, capacity, with_validity=with_validity)(*args))
+
+
+@_job
+def q97_columns(mesh, inputs: Arrays, capacity: int) -> Arrays:
+    """make_distributed_q97_columns over nullable INT32 key columns; a
+    column's validity is the input ``<name>_valid`` when there is one."""
+    cols = []
+    for name in ("s_cust", "s_item", "c_cust", "c_item"):
+        (data,) = _shards(mesh, inputs, name)
+        valid = _shards(mesh, inputs, name + "_valid")[0] if name + "_valid" in inputs \
+            else None
+        cols.append(tc.Column(data, valid, tc.INT32))
+    s_rv, c_rv = _shards(mesh, inputs, "s_rv", "c_rv")
+    return _numpy(make_distributed_q97_columns(mesh, capacity)(*cols, s_rv, c_rv))
+
+
+def _rank_main(rank: int, world: int, shape: Tuple[int, int], workdir: str,
+               jobs: Sequence[Tuple[str, str, dict]]) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(shape, device="cpu")
+        out = {}
+        for label, name, kwargs in jobs:
+            with np.load(os.path.join(workdir, f"{label}.in.npz")) as f:
+                inputs = dict(f)
+            for k, v in JOBS[name](mesh, inputs, **kwargs).items():
+                out[f"{label}.{k}"] = v
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(shape: Tuple[int, int], jobs: Sequence[Tuple[str, str, Arrays, dict]],
+              workdir) -> List[Dict[str, Arrays]]:
+    """Run ``jobs`` -- (label, job name, global inputs, keyword arguments) --
+    on the ranks of a ``shape`` mesh of gloo processes, all in one spawn;
+    returns each rank's ``{label: {name: array}}``, in rank order."""
+    workdir = str(workdir)
+    world = shape[0] * shape[1]
+    for label, _, inputs, _ in jobs:
+        np.savez(os.path.join(workdir, f"{label}.in.npz"), **inputs)
+    mp.start_processes(_rank_main, args=(world, shape, workdir,
+                                         [(label, name, kw) for label, name, _, kw in jobs]),
+                       nprocs=world, join=True, start_method="spawn")
+    results = []
+    for rank in range(world):
+        per_label: Dict[str, Arrays] = {label: {} for label, *_ in jobs}
+        with np.load(os.path.join(workdir, f"rank{rank}.npz")) as f:
+            for key in f.files:
+                label, name = key.split(".", 1)
+                per_label[label][name] = f[key]
+        results.append(per_label)
+    return results
