@@ -61,9 +61,24 @@ port package beside it.  Otherwise it:
    against ``q97_local``), the overflow run's drops, and every row of the
    table against what was sent; holds ``mm_hash_long`` against its plain
    version at the q97 paths' shapes; times every part and the step's phases
-   and prints a ``distributed`` line; then the card's name and power limit,
-   the ``kernels`` line (all seven kernels, their launches over the three
-   paths) and, last, the ``ok`` line.
+   and prints a ``distributed`` line;
+10. drives the plans path with the launch counters at 0 again, on the same
+   mesh and NCCL group: ``q5_local`` on ``generate_q5_data(sf=838.86)``
+   (store_sales 33,554,400 rows), ``q3_local`` on ``generate_q3_data(
+   sf=559.24)`` (67,108,800 rows, 83,886 groups), q3's decimal-columns step
+   on the same facts as device Columns, and ``run_q97_piece`` on the
+   distributed phase's SF10 q97 tables; only the q97 plan may launch a
+   kernel (``mm_hash_long`` once, its Exchange's placement); a second call
+   of each part must be a cache hit with the same answer; holds q5 against
+   ``q5_local_unfused`` and the rollup of ``q5_host_channel_partials``, q3,
+   ``q3_local_unfused`` and the decimal step against a numpy oracle, the q97
+   plan against the distributed phase's oracle and ``make_distributed_q97``,
+   and ``mm_hash_long`` against its plain version at the q97 plan's shape;
+   times each call host to host with its pad and upload share, each
+   executor and step on resident inputs, and one SegmentAgg alone, and
+   prints a ``plans`` line; then the card's name and power limit, the
+   ``kernels`` line (all seven kernels, their launches over the four paths)
+   and, last, the ``ok`` line.
 
 Every check that fails raises, and the script then exits non-zero.
 """
@@ -1211,41 +1226,441 @@ def time_distributed(mesh, b, cfg):
     return out
 
 
-def distributed(cfg):
-    """The distributed phase on a (1, 1) mesh over a one-rank NCCL group:
-    inputs, the path with the counters at 0, the checks, the times; prints
-    the ``distributed`` line and returns the path's launch counts."""
+def distributed(mesh, cfg):
+    """The distributed phase on ``mesh``, a (1, 1) mesh over a one-rank NCCL
+    group: inputs, the path with the counters at 0, the checks, the times;
+    prints the ``distributed`` line and returns the path's launch counts and
+    what the plans phase holds its q97 against (the host tables, the oracle's
+    and ``make_distributed_q97``'s counts, and the times of
+    ``make_distributed_q97`` and ``q97_local``)."""
     import torch.distributed as dist
 
-    mesh, tmp = init_single_rank()
-    try:
-        t0 = time.perf_counter()
-        b = distributed_batch("cuda")
+    t0 = time.perf_counter()
+    b = distributed_batch("cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts, per_part, outs = distributed_path(mesh, b, cfg)
+    want = check_distributed(b, cfg, outs)
+    kernel_checks = distributed_kernel_checks(b)
+    q, qn, qo = outs["q97"], outs["q97_columns"], outs["q97_columns_overflow"]
+    del outs
+    times = time_distributed(mesh, b, cfg)
+    h = b["host"]
+    print(json.dumps({"distributed": {
+        "mesh": [1, 1], "backend": dist.get_backend(), "launches": per_part,
+        "step": {"n": N, "cfg": cfg._asdict()},
+        "q97": {"sf": Q97_SF, "rows": [len(h["store"][0]), len(h["catalog"][0])],
+                "capacity": _q97_capacity(b), "counts": _q97_counts(q)},
+        "q97_columns": {"null_frac": NULL_FRAC, "counts": _q97_counts(qn),
+                        "overflow": {"capacity": _q97_capacity(b) // 4,
+                                     "dropped": int(qo.dropped)}},
+        "table_shuffle": {"n": N_TABLE, "width": TABLE_WIDTH,
+                          "padded_bytes": N_TABLE * TABLE_WIDTH},
+        "oracle": want, "kernel_checks": kernel_checks, "times": times,
+        "batch_gen_s": gen_s}}))
+    return counts, {"store": h["store"], "catalog": h["catalog"], "oracle": want["q97"],
+                    "q97": _q97_counts(q), "capacity": _q97_capacity(b),
+                    "times": {k: times[k] for k in ("q97", "q97_local")}}
+
+
+# ---- the plans path -------------------------------------------------------
+
+Q5_SF, Q5_SEED = 838.86, 5  # store_sales 33,554,400 rows (pads to 2**25); six streams 1.80 GB
+Q3_SF, Q3_SEED = 559.24, 3  # store_sales 67,108,800 rows (2**26); 83,886 groups
+PLAN_REPS = 3  # host-to-host calls timed per part, after the path's first call
+# part -> the kernel launches it must make, and no others
+PLAN_LAUNCHES = {
+    "q5": {},
+    "q3": {},
+    "q3_columns": {},
+    "q97_plan": {"mm_hash_long": 1},  # the Exchange's partition_of
+}
+
+
+def plans_batch(device, q97):
+    """The plans phase's inputs: q5 and q3 data from their generators, q3's
+    facts as device Columns with DECIMAL(38,2) prices (the decimal-columns
+    step's inputs), and the distributed phase's q97 tables as one piece at
+    its capacity."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+    from spark_rapids_jni_tpu_torch.models import Q97Batch, generate_q3_data, generate_q5_data
+    from spark_rapids_jni_tpu_torch.models.q3 import _dims, _geometry, _price_limbs
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    q5 = generate_q5_data(sf=Q5_SF, seed=Q5_SEED)
+    q3 = generate_q3_data(sf=Q3_SF, seed=Q3_SEED)
+    hi, lo = _price_limbs(q3.ss_ext_sales_price)
+    cols = (c.Column(t(q3.ss_item_sk), t(q3.ss_item_sk_valid), c.INT32),
+            c.Column(t(q3.ss_sold_date_sk), t(q3.ss_sold_date_sk_valid), c.INT32),
+            c.Decimal128Column(t(hi), t(lo), None, c.decimal(38, 2)),
+            *(t(v) for v in _dims(q3).values()))
+    piece = Q97Batch(*q97["store"], *q97["catalog"], capacity=q97["capacity"])
+    return {"device": device, "q5": q5, "q3": q3, "q3_cols": cols,
+            "geo3": tuple(sorted(_geometry(q3).items())), "piece": piece}
+
+
+def _q3_columns_calls(mesh, b):
+    """(the step on the resident columns, the step from host arrays: upload,
+    step, download)."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+    from spark_rapids_jni_tpu_torch.models.q3 import _price_limbs, _q3_columns_step
+
+    def resident():
+        return _q3_columns_step(mesh, b["geo3"])(*b["q3_cols"])
+
+    def from_host():
+        q3, dev = b["q3"], b["device"]
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        hi, lo = _price_limbs(q3.ss_ext_sales_price)
+        out = _q3_columns_step(mesh, b["geo3"])(
+            c.Column(t(q3.ss_item_sk), t(q3.ss_item_sk_valid), c.INT32),
+            c.Column(t(q3.ss_sold_date_sk), t(q3.ss_sold_date_sk_valid), c.INT32),
+            c.Decimal128Column(t(hi), t(lo), None, c.decimal(38, 2)),
+            *(t(v) for v in (q3.item_brand_id, q3.item_manufact_id, q3.date_year, q3.date_moy)))
+        return [x.cpu() for x in out]
+
+    return resident, from_host
+
+
+def _plans_calls(mesh, b):
+    """part -> zero-argument call of the port's plan entry points on batch
+    ``b``: q5 and q3 locally on the batch's device, q3's decimal-columns step
+    and q97's plan form on ``mesh``."""
+    from spark_rapids_jni_tpu_torch.models import q3_local, q5_local, run_q97_piece
+
+    dev = b["device"]
+    return {
+        "q5": lambda: q5_local(b["q5"], device=dev),
+        "q3": lambda: q3_local(b["q3"], device=dev),
+        "q3_columns": _q3_columns_calls(mesh, b)[0],
+        "q97_plan": lambda: run_q97_piece(mesh, b["piece"]),
+    }
+
+
+def _cache_counts():
+    from spark_rapids_jni_tpu_torch.models.q3 import _q3_columns_step
+    from spark_rapids_jni_tpu_torch.plans import plan_cache
+
+    s, info = plan_cache.stats(), _q3_columns_step.cache_info()
+    return {"hits": s["hits"], "traces": s["traces"], "step_hits": info.hits,
+            "step_misses": info.misses}
+
+
+def plans_path(mesh, b):
+    """The plans path with the counters at 0; returns the counts of the whole
+    path, each part's own, and the outputs.  Then each part once more, which
+    must be a cache hit and give the same answer."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    calls = _plans_calls(mesh, b)
+    torch.cuda.synchronize()
+    hash_cuda.reset_launches()
+    per_part, outs = {}, {}
+    for part, call in calls.items():
+        before = dict(hash_cuda.launches)
+        outs[part] = call()
         torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t0
-        counts, per_part, outs = distributed_path(mesh, b, cfg)
-        want = check_distributed(b, cfg, outs)
-        kernel_checks = distributed_kernel_checks(b)
-        q, qn, qo = outs["q97"], outs["q97_columns"], outs["q97_columns_overflow"]
-        del outs
-        times = time_distributed(mesh, b, cfg)
-        h = b["host"]
-        print(json.dumps({"distributed": {
-            "mesh": [1, 1], "backend": dist.get_backend(), "launches": per_part,
-            "step": {"n": N, "cfg": cfg._asdict()},
-            "q97": {"sf": Q97_SF, "rows": [len(h["store"][0]), len(h["catalog"][0])],
-                    "capacity": _q97_capacity(b), "counts": _q97_counts(q)},
-            "q97_columns": {"null_frac": NULL_FRAC, "counts": _q97_counts(qn),
-                            "overflow": {"capacity": _q97_capacity(b) // 4,
-                                         "dropped": int(qo.dropped)}},
-            "table_shuffle": {"n": N_TABLE, "width": TABLE_WIDTH,
-                              "padded_bytes": N_TABLE * TABLE_WIDTH},
-            "oracle": want, "kernel_checks": kernel_checks, "times": times,
-            "batch_gen_s": gen_s}}))
-        return counts
-    finally:
-        dist.destroy_process_group()
-        tmp.cleanup()
+        per_part[part] = {k: v - before[k] for k, v in hash_cuda.launches.items() if v > before[k]}
+    counts = dict(hash_cuda.launches)
+    print(json.dumps({"plans_launches": {"total": counts, "per_part": per_part}}))
+    for part, want in PLAN_LAUNCHES.items():
+        if per_part[part] != want:
+            raise AssertionError(f"plans {part} launched {per_part[part]}, not {want}")
+    second = {}
+    for part, call in calls.items():
+        before = _cache_counts()
+        again = call()
+        after = _cache_counts()
+        hit = (after["hits"] == before["hits"] + 1 and after["traces"] == before["traces"]
+               if part != "q3_columns" else after["step_hits"] == before["step_hits"] + 1
+               and after["step_misses"] == before["step_misses"])
+        if not hit:
+            raise AssertionError(f"plans {part}: the second call was no cache hit "
+                                 f"({before} -> {after})")
+        same = (all(torch.equal(x, y) for x, y in zip(again, outs[part]))
+                if part == "q3_columns" else
+                [tuple(map(int, again))] == [tuple(map(int, outs[part]))]
+                if part == "q97_plan" else again == outs[part])
+        if not same:
+            raise AssertionError(f"plans {part}: the second call gave another answer")
+        second[part] = "hit"
+    return counts, per_part, outs, second
+
+
+def q3_oracle(q3):
+    """(sums int64[groups], counts int64[groups], rows) of q3 with numpy: the
+    valid rows whose keys are in their dims, filtered by manufacturer and
+    month, summed exactly in int64 by (year, brand); rows ordered by year,
+    sum descending, brand."""
+    n_items, n_dates = len(q3.item_sk), len(q3.date_sk)
+    isk = q3.ss_item_sk.astype(np.int64)
+    dsk = q3.ss_sold_date_sk.astype(np.int64) - int(q3.date_sk[0])
+    ok = (q3.ss_item_sk_valid & q3.ss_sold_date_sk_valid & (isk >= 1) & (isk <= n_items)
+          & (dsk >= 0) & (dsk < n_dates))
+    i, d, price = isk[ok] - 1, dsk[ok], q3.ss_ext_sales_price[ok]
+    keep = (q3.item_manufact_id[i] == q3.manufact_id) & (q3.date_moy[d] == q3.moy)
+    year0 = int(q3.date_year.min())
+    n_years, n_brands = int(q3.date_year.max()) - year0 + 1, len(q3.brand_names)
+    g = ((q3.date_year[d][keep].astype(np.int64) - year0) * n_brands
+         + q3.item_brand_id[i][keep].astype(np.int64) - 1)
+    sums = np.zeros(n_years * n_brands, np.int64)
+    np.add.at(sums, g, price[keep])
+    counts = np.bincount(g, minlength=n_years * n_brands)
+    rows = [(year0 + int(x) // n_brands, int(x) % n_brands + 1,
+             q3.brand_names[int(x) % n_brands], int(sums[x])) for x in np.nonzero(counts)[0]]
+    rows.sort(key=lambda r: (r[0], -r[3], r[1]))
+    return sums, counts, rows
+
+
+def check_plans(b, q97, outs):
+    """Every part's output checked: q5 against q5_local_unfused on the same
+    device and the rollup of q5_host_channel_partials; q3 and
+    q3_local_unfused against the numpy oracle, and q3's decimal-columns step
+    group by group; q97's plan form against the distributed phase's oracle
+    and make_distributed_q97.  Returns the oracles' seconds and sizes."""
+    from spark_rapids_jni_tpu_torch.models.q3 import q3_local_unfused
+    from spark_rapids_jni_tpu_torch.models.q5 import (
+        _dim_ids,
+        _facts_of,
+        q5_host_channel_partials,
+        q5_local_unfused,
+        q5_rollup,
+    )
+    from spark_rapids_jni_tpu_torch.models.tpcds import CHANNELS
+
+    q5, q3, dev = b["q5"], b["q3"], b["device"]
+    got5 = outs["q5"]
+    if q5_local_unfused(q5, device=dev) != got5:
+        raise AssertionError("q5_local != q5_local_unfused")
+    t0 = time.perf_counter()
+    per = {n: q5_host_channel_partials(
+        _facts_of(q5.channels[n]), len(q5.channels[n].dim_sk), q5.date_sk, q5.date_days,
+        q5.sales_date_lo, q5.sales_date_hi) for n in CHANNELS}
+    q5_oracle_s = time.perf_counter() - t0
+    if q5_rollup(per, _dim_ids(q5)) != got5:
+        raise AssertionError("q5_local != the rollup of q5_host_channel_partials")
+
+    t0 = time.perf_counter()
+    sums, counts, rows = q3_oracle(q3)
+    q3_oracle_s = time.perf_counter() - t0
+    got3 = [tuple(r) for r in outs["q3"]]
+    if got3 != rows or not rows:
+        raise AssertionError(f"q3_local ({len(got3)} rows) != the numpy oracle ({len(rows)})")
+    if [tuple(r) for r in q3_local_unfused(q3, device=dev)] != rows:
+        raise AssertionError("q3_local_unfused != the numpy oracle")
+    hi, lo, cnt = (x.cpu().numpy() for x in outs["q3_columns"])
+    if not (np.array_equal(cnt, counts) and np.array_equal(lo, sums)
+            and np.array_equal(hi, sums >> 63)):
+        raise AssertionError("q3 columns step (hi, lo, counts) != the numpy oracle")
+
+    got97 = outs["q97_plan"]
+    counts97 = tuple(int(x) for x in got97[:3])
+    if not (counts97 == tuple(q97["oracle"]) == tuple(q97["q97"]) and int(got97.dropped) == 0):
+        raise AssertionError(f"q97_plan {counts97} (dropped {int(got97.dropped)}), oracle "
+                             f"{q97['oracle']}, make_distributed_q97 {q97['q97']}")
+    return {"q5_oracle_s": q5_oracle_s, "q3_oracle_s": q3_oracle_s, "q5_rows": len(got5),
+            "q3_rows": len(rows), "q97_counts": counts97}
+
+
+def plans_kernel_checks(b):
+    """mm_hash_long against its plain version at the q97 plan's shape: the
+    packed keys of the padded store and catalog scans, in Union order."""
+    from spark_rapids_jni_tpu_torch.models.q97 import _composite_key
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+    from spark_rapids_jni_tpu_torch.parallel import quantized_rows
+
+    p = b["piece"]
+    keys = []
+    for cust, item in ((p.s_cust, p.s_item), (p.c_cust, p.c_item)):
+        m = quantized_rows(len(cust), 1)
+        padded = [np.concatenate([a, np.zeros(m - len(a), a.dtype)]) for a in (cust, item)]
+        keys.append(_composite_key(*(torch.from_numpy(a).to(b["device"]) for a in padded)))
+    keys = torch.cat(keys)
+    return {"n": keys.numel(), "max_abs_err": _require_equal(
+        "mm_hash_long on the q97 plan's keys", hash_cuda.mm_hash_long_cuda(keys, 42),
+        hash_cuda.mm_hash_long_torch(keys, 42))}
+
+
+def _host_to_host(call, reps=PLAN_REPS) -> dict:
+    """Median seconds of ``call`` (host to host: it ends in host results) and
+    the peak device memory of one call beside what was resident before."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"s": statistics.median(times), "runs_s": times,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "resident_bytes": resident}
+
+
+def _pad_upload(compiled, tables) -> dict:
+    """The host pad (numpy) and the upload of one call of ``compiled``, each
+    timed alone on the host clock; returns them with the uploaded inputs."""
+    from spark_rapids_jni_tpu_torch.plans import pad_tables, plan_inputs
+
+    t0 = time.perf_counter()
+    padded = pad_tables(compiled.plan, tables, 1)  # one data shard: a (1, 1) mesh
+    t1 = time.perf_counter()
+    flat = plan_inputs(compiled, padded)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"pad_s": t1 - t0, "upload_s": t2 - t1,
+            "upload_bytes": sum(x.numel() * x.element_size() for x in flat)}, flat
+
+
+def _segment_phases(b):
+    """One SegmentAgg's index_add_ alone, on the ids and values the plans
+    give it: q5's store sales prices into their 6 dim buckets (the masked
+    rows, most of them, dropped), the same rows spread over 65536 buckets,
+    and q3's prices into its groups (83,886 at full size; masked rows dropped)."""
+    from spark_rapids_jni_tpu_torch.models.q3 import _geometry, _group
+    from spark_rapids_jni_tpu_torch.models.q5 import _window_member
+    from spark_rapids_jni_tpu_torch.plans.compiler import segment_sum
+
+    dev, q5, q3 = b["device"], b["q5"], b["q3"]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ch = q5.channels["store"]
+    n_dim = len(ch.dim_sk)
+    sk, price = t(ch.sales_sk), t(ch.sales_price)
+    ok = (t(ch.sales_sk_valid) & (sk >= 1) & (sk <= n_dim)
+          & _window_member(t(ch.sales_date), t(ch.sales_date_valid), t(q5.date_sk),
+                           t(q5.date_days), q5.sales_date_lo, q5.sales_date_hi))
+    ids = torch.where(ok, sk - 1, -1)
+    vals = torch.where(ok, price, 0)
+    spread = torch.arange(sk.numel(), device=dev, dtype=torch.int32) % 65536
+
+    geo = _geometry(q3)
+    item, date = b["q3_cols"][0], b["q3_cols"][1]
+    brand, manufact, year, moy = b["q3_cols"][3:]
+    i_idx = torch.clamp(item.data - 1, 0, brand.shape[0] - 1)
+    d_idx = torch.clamp(date.data - geo["date_sk0"], 0, year.shape[0] - 1)
+    q3_ok = (item.is_valid() & date.is_valid() & (manufact[i_idx] == geo["manufact_id"])
+             & (moy[d_idx] == geo["moy"]))
+    groups = geo["n_years"] * geo["n_brands"]
+    q3_ids = torch.where(q3_ok, _group(i_idx, d_idx, brand, year, n_brands=geo["n_brands"],
+                                       year0=geo["year0"], n_years=geo["n_years"]), -1)
+    q3_vals = torch.where(q3_ok, t(q3.ss_ext_sales_price), 0)
+    return {"rows": [sk.numel(), q3_ids.numel()],
+            "q5_store_sales_kept": int(ok.sum()), "q3_kept": int(q3_ok.sum()),
+            "q5_store_sales_6_buckets_ms": _time_ms(lambda: segment_sum(vals, ids, n_dim)),
+            "same_rows_65536_buckets_ms": _time_ms(lambda: segment_sum(vals, spread, 65536)),
+            "q3_groups": groups,
+            "q3_groups_ms": _time_ms(lambda: segment_sum(q3_vals, q3_ids, groups))}
+
+
+def _unfused_device_only(b):
+    """The unfused forms' device bodies on inputs already on the card: q5's
+    six streams through ``_channel_partials``, q3 through ``_partials``."""
+    from spark_rapids_jni_tpu_torch.models.q3 import _dims, _facts, _geometry, _partials
+    from spark_rapids_jni_tpu_torch.models.q5 import _channel_partials, _facts_of
+    from spark_rapids_jni_tpu_torch.models.tpcds import CHANNELS
+
+    dev, q5, q3 = b["device"], b["q5"], b["q3"]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    chans = {n: ({k: t(v) for k, v in _facts_of(q5.channels[n]).items()},
+                 len(q5.channels[n].dim_sk)) for n in CHANNELS}
+    dim_sk, dim_days = t(q5.date_sk), t(q5.date_days)
+    facts = [t(v) for v in _facts(q3).values()]
+    dims = {k: t(v) for k, v in _dims(q3).items()}
+    geo = _geometry(q3)
+    return {
+        "q5_local_unfused": {"ms": _time_ms(lambda: [_channel_partials(
+            ch, n_dim, dim_sk, dim_days, q5.sales_date_lo, q5.sales_date_hi)
+            for ch, n_dim in chans.values()])},
+        "q3_local_unfused": {"ms": _time_ms(lambda: _partials(*facts, **dims, **geo))},
+    }
+
+
+def time_plans(mesh, b):
+    """Host-to-host time and peak memory of each part's whole call, with its
+    host pad and upload share; the unfused forms host to host; the
+    device-only time of each CompiledPlan.fn (make_distributed_q5/q3 on the
+    mesh, the q97 plan), of the decimal-columns step and of the unfused
+    bodies on inputs already on the card; and one SegmentAgg's index_add_
+    alone."""
+    from spark_rapids_jni_tpu_torch.models import make_distributed_q3, make_distributed_q5
+    from spark_rapids_jni_tpu_torch.models.q3 import _dims, _facts, _q3_tables, q3_local_unfused
+    from spark_rapids_jni_tpu_torch.models.q5 import _plan_and_tables, q5_local_unfused
+    from spark_rapids_jni_tpu_torch.models.q97 import q97_plan
+    from spark_rapids_jni_tpu_torch.plans import compiled_plan_for
+
+    calls = _plans_calls(mesh, b)
+    resident, from_host = _q3_columns_calls(mesh, b)
+    host = {part: _host_to_host(calls[part]) for part in ("q5", "q3", "q97_plan")}
+    host["q3_columns"] = _host_to_host(from_host)
+    dev = b["device"]
+    host["q5_local_unfused"] = _host_to_host(lambda: q5_local_unfused(b["q5"], device=dev), 2)
+    host["q3_local_unfused"] = _host_to_host(lambda: q3_local_unfused(b["q3"], device=dev), 2)
+
+    p = b["piece"]
+    q97_tables = {"store": {"cust": p.s_cust, "item": p.s_item},
+                  "catalog": {"cust": p.c_cust, "item": p.c_item}}
+    executors = {
+        "make_distributed_q5": (make_distributed_q5(mesh, b["q5"]), _plan_and_tables(b["q5"])[1]),
+        "make_distributed_q3": (make_distributed_q3(mesh, b["q3"]),
+                                _q3_tables(_facts(b["q3"]), _dims(b["q3"]))),
+        "q97_plan": (compiled_plan_for(q97_plan(p.capacity), mesh, q97_tables), q97_tables),
+    }
+    device_only = {}
+    for name, (compiled, tables) in executors.items():
+        share, flat = _pad_upload(compiled, tables)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        device_only[name] = {"ms": _time_ms(lambda: compiled.fn(*flat)),
+                             "peak_mem_bytes": torch.cuda.max_memory_allocated(), **share}
+        del flat
+    device_only["q3_columns_step"] = {"ms": _time_ms(resident)}
+    device_only.update(_unfused_device_only(b))
+    for part, name in (("q5", "make_distributed_q5"), ("q3", "make_distributed_q3"),
+                       ("q97_plan", "q97_plan")):
+        host[part].update({k: device_only[name][k] for k in ("pad_s", "upload_s",
+                                                              "upload_bytes")})
+    return {"host_to_host": host, "device_only": device_only,
+            "segment_sum": _segment_phases(b)}
+
+
+def plans(mesh, q97):
+    """The plans phase on ``mesh`` (the distributed phase's): inputs, the
+    path with the counters at 0, a second call of each part (a cache hit),
+    the checks, the times; prints the ``plans`` line and returns the path's
+    launch counts."""
+    t0 = time.perf_counter()
+    b = plans_batch("cuda", q97)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts, per_part, outs, second = plans_path(mesh, b)
+    checks = check_plans(b, q97, outs)
+    kernel_check = plans_kernel_checks(b)
+    del outs
+    times = time_plans(mesh, b)
+    times["device_only"].update({"make_distributed_q97": q97["times"]["q97"],
+                                 "q97_local": q97["times"]["q97_local"]})
+    q5, q3 = b["q5"], b["q3"]
+    print(json.dumps({"plans": {
+        "mesh": [1, 1], "launches": per_part, "second_call": second,
+        "q5": {"sf": Q5_SF, "seed": Q5_SEED,
+               "rows": {n: [len(ch.sales_sk), len(ch.ret_sk)] for n, ch in q5.channels.items()}},
+        "q3": {"sf": Q3_SF, "seed": Q3_SEED, "rows": len(q3.ss_item_sk),
+               "items": len(q3.item_sk), "brands": len(q3.brand_names)},
+        "q97_plan": {"capacity": b["piece"].capacity, "rows": b["piece"].rows},
+        "checks": checks, "kernel_check": kernel_check, "times": times,
+        "batch_gen_s": gen_s}}))
+    return counts
 
 
 def main() -> int:
@@ -1290,9 +1705,18 @@ def main() -> int:
         "spark_string_vector_cases": n_string_vectors}}))
     del batch
 
-    dist_counts = distributed(cfg)
-    for row in rows:  # the main path is now all three paths: their launches add up
-        row["launches"] = counts[row["name"]] + col_counts[row["name"]] + dist_counts[row["name"]]
+    import torch.distributed as dist
+
+    mesh, tmp = init_single_rank()  # one NCCL group for the distributed and plans phases
+    try:
+        dist_counts, q97 = distributed(mesh, cfg)
+        plan_counts = plans(mesh, q97)
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    for row in rows:  # the main path is now all four paths: their launches add up
+        row["launches"] = (counts[row["name"]] + col_counts[row["name"]]
+                           + dist_counts[row["name"]] + plan_counts[row["name"]])
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,7 @@ from spark_rapids_jni_tpu_torch.parallel.shuffle import (
     quantized_rows,
 )
 from spark_rapids_jni_tpu_torch.parallel.table_shuffle import shuffle_table
+from spark_rapids_jni_tpu_torch.plans import ir as ir_mod
 
 _SENTINEL = 0x7FFFFFFFFFFFFFFF  # sorts last; a run of it is not counted
 _GOLDEN = -7046029254386353131  # 0x9E3779B97F4A7C15 as int64
@@ -159,6 +160,26 @@ def make_distributed_q97(mesh: DeviceMesh, capacity: int, with_validity: bool = 
     return functools.partial(_sharded_q97, capacity=capacity, mesh=mesh)
 
 
+@functools.lru_cache(maxsize=64)
+def q97_plan(capacity: int) -> ir_mod.Plan:
+    """The whole distributed q97 pipeline as ONE plan: two fact scans project
+    the packed composite key, union with a source tag, exchange by key hash
+    (the static ``capacity`` is plan structure: one executor per pow2
+    capacity), then sort-merge presence counting.  Mesh-only (it contains an
+    Exchange)."""
+    from spark_rapids_jni_tpu_torch.plans.ir import Bin, Cast, col, lit
+
+    key = Bin("bor",
+              Bin("shl", Cast(col("cust"), "int64"), lit(32)),
+              Bin("band", Cast(col("item"), "int64"), lit(0xFFFFFFFF)))
+    store = ir_mod.Project(ir_mod.Scan("store", ("cust", "item")), (("key", key),))
+    catalog = ir_mod.Project(ir_mod.Scan("catalog", ("cust", "item")), (("key", key),))
+    node = ir_mod.Union((store, catalog), tag="tag", tag_values=(1, 0))
+    node = ir_mod.Exchange(node, key=col("key"), capacity=int(capacity),
+                           fields=("key", "tag"))
+    return ir_mod.Plan("q97", (ir_mod.PresenceCount(node, key="key", tag="tag"),))
+
+
 # ------------------------------------------------------- nullable columns --
 # q97 over Column inputs with nullable keys.  SQL semantics: NULL keys group
 # within a side (DISTINCT treats NULLs as one group) but never join across
@@ -231,8 +252,8 @@ def make_distributed_q97_columns(mesh: DeviceMesh, capacity: int):
 
 # ------------------------------------------------------------ host helpers --
 # Framework-neutral pieces of the governed control loop: key-space splitting,
-# working-set estimates and capacities.  The governed runner itself arrives
-# with memory governance.
+# working-set estimates and capacities, and the single-attempt plan run.  The
+# governed runner itself arrives with memory governance.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,6 +334,23 @@ def default_q97_capacity(total_rows: int, dp: int) -> int:
     power of two so that data-dependent totals share few capacities."""
     raw = max(16, int(2 * total_rows / (dp * dp)) if dp > 1 else total_rows)
     return next_pow2(raw)
+
+
+def run_q97_piece(mesh: DeviceMesh, piece: Q97Batch) -> Q97Out:
+    """One execution of one q97 (sub-)batch through :func:`q97_plan` on every
+    rank of ``mesh``, each rank passing the same host batch; returns the
+    global counts as numpy scalars.  Pad, upload and run live in
+    ``plans.runtime.execute_plan``.  Raises
+    :class:`mem.governed.ShuffleCapacityExceeded` (on every rank) when rows
+    overflowed the piece's exchange capacity: the caller grows it and
+    re-runs."""
+    from spark_rapids_jni_tpu_torch.plans.runtime import execute_plan
+
+    out = execute_plan(mesh, q97_plan(piece.capacity), {
+        "store": {"cust": piece.s_cust, "item": piece.s_item},
+        "catalog": {"cust": piece.c_cust, "item": piece.c_item},
+    })
+    return Q97Out(out["store_only"], out["catalog_only"], out["both"], out["dropped"])
 
 
 def combine_q97_outs(outs) -> Q97Out:

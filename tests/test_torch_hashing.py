@@ -328,6 +328,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spark_rapids_jni_tpu_torch.parallel.table_shuffle\n"
         "import spark_rapids_jni_tpu_torch.models.nds, spark_rapids_jni_tpu_torch.models.q97\n"
         "import spark_rapids_jni_tpu_torch.models.tpcds\n"
+        "import spark_rapids_jni_tpu_torch.models.q5, spark_rapids_jni_tpu_torch.models.q3\n"
+        "import spark_rapids_jni_tpu_torch.plans, spark_rapids_jni_tpu_torch.plans.ir\n"
+        "import spark_rapids_jni_tpu_torch.plans.cache, spark_rapids_jni_tpu_torch.plans.compiler\n"
+        "import spark_rapids_jni_tpu_torch.plans.runtime\n"
+        "import spark_rapids_jni_tpu_torch.mem, spark_rapids_jni_tpu_torch.mem.governed\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_mesh_ranks  # what spawned gloo ranks import\n"
         "import chip_smoke\n"

@@ -1,6 +1,6 @@
 """Jobs run on every rank of a gloo group on the CPU, for the port's
 distributed parity tests (``tests/test_torch_distributed.py``,
-``tests/test_torch_q97.py``).
+``tests/test_torch_q97.py``, ``tests/test_torch_plan_ranks.py``).
 
 :func:`run_ranks` spawns one process per rank of a (dp, mp) mesh.  Each rank
 joins a gloo group through a ``file://`` rendezvous in the caller's work
@@ -25,11 +25,23 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from spark_rapids_jni_tpu_torch import columnar as tc
+from spark_rapids_jni_tpu_torch.mem.governed import ShuffleCapacityExceeded
 from spark_rapids_jni_tpu_torch.models import (
+    Q97Batch,
     QueryStepConfig,
     make_distributed_q97,
     make_distributed_q97_columns,
     make_distributed_query_step,
+    run_q97_piece,
+)
+from spark_rapids_jni_tpu_torch.models import q3 as q3_mod
+from spark_rapids_jni_tpu_torch.models import q5 as q5_mod
+from spark_rapids_jni_tpu_torch.models.tpcds import generate_q3_data, generate_q5_data
+from spark_rapids_jni_tpu_torch.plans import (
+    execute_plan,
+    pad_tables,
+    plan_cache,
+    plan_inputs,
 )
 from spark_rapids_jni_tpu_torch.parallel import (
     DATA_AXIS,
@@ -137,6 +149,67 @@ def q97_columns(mesh, inputs: Arrays, capacity: int) -> Arrays:
         cols.append(tc.Column(data, valid, tc.INT32))
     s_rv, c_rv = _shards(mesh, inputs, "s_rv", "c_rv")
     return _numpy(make_distributed_q97_columns(mesh, capacity)(*cols, s_rv, c_rv))
+
+
+@_job
+def q97_piece(mesh, inputs: Arrays, capacity: int) -> Arrays:
+    """run_q97_piece over the WHOLE host tables, as every rank passes them;
+    ``raised`` is 1 where it raised ShuffleCapacityExceeded."""
+    piece = Q97Batch(inputs["s_cust"], inputs["s_item"], inputs["c_cust"], inputs["c_item"],
+                     capacity=capacity)
+    try:
+        out = run_q97_piece(mesh, piece)
+    except ShuffleCapacityExceeded:
+        return {"raised": np.array(1)}
+    return {**out._asdict(), "raised": np.array(0)}
+
+
+def _query(query: str, sf: float, seed: int):
+    """(module, plan, host tables, make_distributed) of q5 or q3 at (sf, seed)."""
+    if query == "q5":
+        data = generate_q5_data(sf=sf, seed=seed)
+        plan, tables = q5_mod._plan_and_tables(data)
+        return data, plan, tables, q5_mod.make_distributed_q5
+    data = generate_q3_data(sf=sf, seed=seed)
+    tables = q3_mod._q3_tables(q3_mod._facts(data), q3_mod._dims(data))
+    return data, q3_mod.q3_plan(**q3_mod._geometry(data)), tables, q3_mod.make_distributed_q3
+
+
+@_job
+def plan(mesh, inputs: Arrays, query: str, sf: float, seed: int) -> Arrays:
+    """execute_plan of q5's or q3's plan over the whole host tables, twice
+    (``retraces``/``hits`` count what the second run added), then the
+    executor of make_distributed_* on this rank's flat shards (``same`` is 1
+    where it returned the identical cached executor on every call)."""
+    data, plan_, tables, make = _query(query, sf, seed)
+    out = {f"plan.{k}": v for k, v in execute_plan(mesh, plan_, tables).items()}
+    before = plan_cache.stats()
+    execute_plan(mesh, plan_, tables)
+    after = plan_cache.stats()
+    compiled = make(mesh, data)
+    same = all(make(mesh, data) is compiled for _ in range(3))
+    flat = plan_inputs(compiled, pad_tables(plan_, tables, axis_size(mesh, DATA_AXIS)))
+    for name, v in zip(compiled.out_names, compiled.fn(*flat)):
+        out[f"fn.{name}"] = v.numpy()
+    return {**out, "retraces": np.array(after["traces"] - before["traces"]),
+            "hits": np.array(after["hits"] - before["hits"]), "same": np.array(int(same))}
+
+
+@_job
+def q3_columns(mesh, inputs: Arrays, geo: dict) -> Arrays:
+    """_q3_columns_step over this rank's shard of padded facts (INT32 key
+    Columns with validity, a DECIMAL(38,2) price from its limbs) and the dims
+    whole; ``same`` is 1 where the step came from its cache."""
+    ss_item, ss_item_v, ss_date, ss_date_v, hi, lo = _shards(
+        mesh, inputs, "ss_item", "ss_item_v", "ss_date", "ss_date_v", "price_hi", "price_lo")
+    dims = [torch.from_numpy(inputs[n]) for n in ("item_brand", "item_manufact", "date_year",
+                                                 "date_moy")]
+    geo_items = tuple(sorted(geo.items()))
+    step = q3_mod._q3_columns_step(mesh, geo_items)
+    out = step(tc.Column(ss_item, ss_item_v, tc.INT32), tc.Column(ss_date, ss_date_v, tc.INT32),
+               tc.Decimal128Column(hi, lo, None, tc.decimal(38, 2)), *dims)
+    same = q3_mod._q3_columns_step(mesh, geo_items) is step
+    return {**_numpy(out), "same": np.array(int(same))}
 
 
 def _rank_main(rank: int, world: int, shape: Tuple[int, int], workdir: str,
