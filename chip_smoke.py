@@ -76,9 +76,24 @@ port package beside it.  Otherwise it:
    and ``mm_hash_long`` against its plain version at the q97 plan's shape;
    times each call host to host with its pad and upload share, each
    executor and step on resident inputs, and one SegmentAgg alone, and
-   prints a ``plans`` line; then the card's name and power limit, the
-   ``kernels`` line (all seven kernels, their launches over the four paths)
-   and, last, the ``ok`` line.
+   prints a ``plans`` line;
+11. drives the governed path with the launch counters at 0 again, on the
+   same mesh: ``run_distributed_q97`` on the SF10 tables,
+   ``run_distributed_q5`` on the plans phase's q5 data, and
+   ``run_distributed_q3`` and ``run_distributed_q3_columns`` on its q3 data,
+   each twice under the default budget (the card's memory) and twice under
+   a budget of half its working set; the default runs launch
+   ``mm_hash_long`` once (q97) or nothing (q5, q3), the tight runs must
+   split (q97 launching it once per key-space piece); every answer must
+   equal the ungoverned run's, every reservation be released and no thread
+   be left blocked; holds
+   ``mm_hash_long`` against its plain version at a split piece's shape, runs
+   a few seconds of the monte-carlo stress harness over a spillable cache of
+   CUDA buffers, and prints a ``governed`` line (each call's seconds, splits,
+   retries, executions, reserved bytes, peak device memory and launches,
+   and the arbiter's build seconds); then the card's name and power limit,
+   the ``kernels`` line (all seven kernels, their launches over the five
+   paths) and, last, the ``ok`` line.
 
 Every check that fails raises, and the script then exits non-zero.
 """
@@ -1638,7 +1653,10 @@ def plans(mesh, q97):
     """The plans phase on ``mesh`` (the distributed phase's): inputs, the
     path with the counters at 0, a second call of each part (a cache hit),
     the checks, the times; prints the ``plans`` line and returns the path's
-    launch counts."""
+    launch counts and what the governed phase holds its runs against (the
+    q5 and q3 data, ``q5_local``'s and ``q3_local``'s rows and host-to-host
+    seconds, those of q3's decimal-columns step from host arrays and of the
+    ungoverned q97 plan)."""
     t0 = time.perf_counter()
     b = plans_batch("cuda", q97)
     torch.cuda.synchronize()
@@ -1646,6 +1664,7 @@ def plans(mesh, q97):
     counts, per_part, outs, second = plans_path(mesh, b)
     checks = check_plans(b, q97, outs)
     kernel_check = plans_kernel_checks(b)
+    q5_rows, q3_rows = outs["q5"], [tuple(r) for r in outs["q3"]]
     del outs
     times = time_plans(mesh, b)
     times["device_only"].update({"make_distributed_q97": q97["times"]["q97"],
@@ -1660,6 +1679,233 @@ def plans(mesh, q97):
         "q97_plan": {"capacity": b["piece"].capacity, "rows": b["piece"].rows},
         "checks": checks, "kernel_check": kernel_check, "times": times,
         "batch_gen_s": gen_s}}))
+    host = times["host_to_host"]
+    return counts, {"q5": q5, "q5_rows": q5_rows, "q5_local_s": host["q5"]["s"],
+                    "q3": q3, "q3_rows": q3_rows, "q3_local_s": host["q3"]["s"],
+                    "q3_columns_s": host["q3_columns"]["s"],
+                    "q97_piece_s": host["q97_plan"]["s"]}
+
+
+# ---- the governed path -----------------------------------------------------
+
+GOV_TIGHT = 0.5  # the tight budget: this share of a run's working set
+GOV_REPS = 2  # calls of each governed run, each checked
+# run -> the kernel launches of one call, and no others
+GOV_LAUNCHES = {
+    "q97_default": {"mm_hash_long": 1},  # one piece: the Exchange's partition_of
+    "q97_tight": {"mm_hash_long": 2},  # two key-space pieces
+    "q5_default": {},
+    "q5_tight": {},
+    "q3_default": {},
+    "q3_tight": {},
+    "q3_columns_default": {},
+    "q3_columns_tight": {},
+}
+GOV_TASKS = {"q97": 97, "q5": 5, "q3": 3, "q3_columns": 33}  # query -> its task id
+MONTE_CARLO = dict(n_tasks=16, n_threads=8, n_shuffle_threads=2, budget_bytes=64 << 20,
+                   task_max_bytes=48 << 20, allocs_per_task=50, skewed=True,
+                   inject_retry_pct=5.0, seed=7, spill_buffers=8, duration_s=4.0)
+
+
+def _governed_runs(mesh, q97, gp):
+    """query -> (call of the governed runner under ``budget``, its
+    working-set bytes): run_distributed_q97 on the SF10 tables,
+    run_distributed_q5 on the plans phase's q5 data, run_distributed_q3 and
+    run_distributed_q3_columns on its q3 data, on ``mesh``."""
+    from spark_rapids_jni_tpu_torch.models import (
+        Q97Batch,
+        run_distributed_q3,
+        run_distributed_q3_columns,
+        run_distributed_q5,
+        run_distributed_q97,
+    )
+    from spark_rapids_jni_tpu_torch.models.q3 import _facts, _price_limbs, q3_working_set_bytes
+    from spark_rapids_jni_tpu_torch.models.q5 import _plan_and_tables
+    from spark_rapids_jni_tpu_torch.models.q97 import q97_working_set_bytes
+    from spark_rapids_jni_tpu_torch.plans import plan_working_set_bytes
+
+    store, catalog, cap = q97["store"], q97["catalog"], q97["capacity"]
+    plan, tables = _plan_and_tables(gp["q5"])
+    q3 = gp["q3"]
+    # the columns form's facts carry the price as two int64 limbs, not as one
+    facts = {k: v for k, v in _facts(q3).items() if k != "price"}
+    facts["price_hi"], facts["price_lo"] = _price_limbs(q3.ss_ext_sales_price)
+    ws = {"q97": q97_working_set_bytes(Q97Batch(*store, *catalog, capacity=cap), 1),
+          "q5": plan_working_set_bytes(plan, tables, 1),
+          "q3": q3_working_set_bytes(q3, 1),
+          "q3_columns": q3_working_set_bytes(facts, 1)}
+    del facts
+    call = {"q97": lambda budget: run_distributed_q97(mesh, store, catalog, budget=budget,
+                                                       task_id=GOV_TASKS["q97"], capacity=cap,
+                                                       manage_task=False),
+            "q5": lambda budget: run_distributed_q5(mesh, gp["q5"], budget=budget,
+                                                    task_id=GOV_TASKS["q5"], manage_task=False),
+            "q3": lambda budget: run_distributed_q3(mesh, q3, budget=budget,
+                                                    task_id=GOV_TASKS["q3"], manage_task=False),
+            "q3_columns": lambda budget: run_distributed_q3_columns(
+                mesh, q3, budget=budget, task_id=GOV_TASKS["q3_columns"], manage_task=False)}
+    return call, ws
+
+
+def _governed_once(gov, budget, task_id, call):
+    """One governed call under ``budget`` in its task: the answer and what it
+    cost (host-to-host seconds, splits and retries, executions, the budget's
+    high-water reservation, the device peak beside what was resident, and
+    the kernel launches)."""
+    from spark_rapids_jni_tpu_torch.mem import task_context
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+    from spark_rapids_jni_tpu_torch.plans import plan_cache
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    budget.reset_peak()
+    before = dict(hash_cuda.launches)
+    execs = plan_cache.stats()["execute_calls"]
+    t0 = time.perf_counter()
+    with task_context(gov, task_id):
+        out = call(budget)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        splits = gov.get_and_reset_num_split_retry(task_id)
+        retries = gov.get_and_reset_num_retry(task_id)
+    return out, {
+        "s": seconds, "splits": splits, "retries": retries,
+        "executions": plan_cache.stats()["execute_calls"] - execs,
+        "reserved_peak_bytes": budget.reset_peak(), "budget_bytes": budget.limit,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "resident_bytes": resident,
+        "launches": {k: v - before[k] for k, v in hash_cuda.launches.items() if v > before[k]}}
+
+
+def governed_path(mesh, q97, gp):
+    """The governed path with the counters at 0: each runner GOV_REPS times
+    under the default (card-sized) budget and under GOV_TIGHT of its working
+    set; returns the path's launch counts, each run's calls and answers."""
+    from spark_rapids_jni_tpu_torch.mem import BudgetedResource, MemoryGovernor
+    from spark_rapids_jni_tpu_torch.mem.governed import default_device_budget
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    gov = MemoryGovernor.initialize()
+    call, ws = _governed_runs(mesh, q97, gp)
+    budgets = {"default": default_device_budget(gov)}
+    torch.cuda.synchronize()
+    hash_cuda.reset_launches()
+    runs, answers = {}, {}
+    for query in GOV_TASKS:
+        budgets[f"{query}_tight"] = BudgetedResource(gov, int(ws[query] * GOV_TIGHT))
+        for kind in ("default", "tight"):
+            run = f"{query}_{kind}"
+            budget = budgets["default" if kind == "default" else run]
+            calls = [_governed_once(gov, budget, GOV_TASKS[query], call[query])
+                     for _ in range(GOV_REPS)]
+            answers[run] = [out for out, _ in calls]
+            runs[run] = {"working_set_bytes": ws[query], "calls": [c for _, c in calls]}
+    counts = dict(hash_cuda.launches)
+    print(json.dumps({"governed_launches": {
+        "total": counts, "per_run": {r: [c["launches"] for c in v["calls"]]
+                                     for r, v in runs.items()}}}))
+    for run, want in GOV_LAUNCHES.items():
+        got = [c["launches"] for c in runs[run]["calls"]]
+        if got != [want] * GOV_REPS:
+            raise AssertionError(f"governed {run} launched {got}, not {want} per call")
+    return counts, runs, answers, budgets, gov
+
+
+def check_governed(q97, gp, runs, answers, budgets, gov):
+    """Every answer equal to the ungoverned run's (q97: the distributed
+    phase's oracle and make_distributed_q97; q5: q5_local; q3 and its
+    decimal-columns form: q3_local, itself held to the numpy oracle); each
+    tight run split (an arbiter split signal, and two or more executions of
+    the plan where the runner has one: q3's columns form runs its step, not
+    a plan) and each default run did not; every reservation released and no
+    thread left blocked."""
+    for run, outs in answers.items():
+        query = run.rsplit("_", 1)[0]
+        for out in outs:
+            if query == "q97":
+                got = (int(out.store_only), int(out.catalog_only), int(out.both))
+                if not got == tuple(q97["oracle"]) == tuple(q97["q97"]):
+                    raise AssertionError(f"governed {run} {got} != oracle {q97['oracle']}")
+            elif query == "q5" and out != gp["q5_rows"]:
+                raise AssertionError(f"governed {run} != q5_local")
+            elif query.startswith("q3") and [tuple(r) for r in out] != gp["q3_rows"]:
+                raise AssertionError(f"governed {run} != q3_local")
+        for c in runs[run]["calls"]:
+            split = c["splits"] >= 1 and (query == "q3_columns" or c["executions"] >= 2)
+            if split != run.endswith("tight"):
+                raise AssertionError(f"governed {run}: executions {c['executions']}, "
+                                     f"splits {c['splits']}")
+    used = {name: b.used for name, b in budgets.items()}
+    blocked = gov.arbiter.total_blocked_or_bufn()
+    if any(used.values()) or blocked:
+        raise AssertionError(f"governed: budget left in use {used}, blocked threads {blocked}")
+    return {"budget_used_after": used, "blocked_or_bufn_after": blocked}
+
+
+def governed_kernel_check(q97, device="cuda"):
+    """mm_hash_long against its plain version at a tight q97 run's shape: the
+    packed keys of the first key-space piece's padded scans; with the host
+    seconds of that split (``split_q97_batch``, numpy) alone."""
+    from spark_rapids_jni_tpu_torch.models import Q97Batch, split_q97_batch
+    from spark_rapids_jni_tpu_torch.models.q97 import _composite_key
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+    from spark_rapids_jni_tpu_torch.parallel import quantized_rows
+
+    t0 = time.perf_counter()
+    piece = split_q97_batch(Q97Batch(*q97["store"], *q97["catalog"],
+                                     capacity=q97["capacity"]))[0]
+    split_s = time.perf_counter() - t0
+    keys = []
+    for cust, item in ((piece.s_cust, piece.s_item), (piece.c_cust, piece.c_item)):
+        m = quantized_rows(len(cust), 1)
+        padded = [np.concatenate([a, np.zeros(m - len(a), a.dtype)]) for a in (cust, item)]
+        keys.append(_composite_key(*(torch.from_numpy(a).to(device) for a in padded)))
+    keys = torch.cat(keys)
+    return {"n": keys.numel(), "q97_split_s": split_s, "max_abs_err": _require_equal(
+        "mm_hash_long on a tight q97 piece's keys", hash_cuda.mm_hash_long_cuda(keys, 42),
+        hash_cuda.mm_hash_long_torch(keys, 42))}
+
+
+def governed_monte_carlo(device="cuda"):
+    """A few seconds of the monte-carlo stress harness: tasks, shuffle threads
+    and injected OOMs over one budget, with a spillable cache of buffers on
+    ``device`` (pinned host copies when spilled); must come out ok."""
+    from spark_rapids_jni_tpu_torch.mem.montecarlo import MonteCarloConfig, run_monte_carlo
+
+    t0 = time.perf_counter()
+    stats = run_monte_carlo(MonteCarloConfig(**MONTE_CARLO, device=device))
+    seconds = time.perf_counter() - t0
+    if not (stats.ok and stats.cache_pins > 0):
+        raise AssertionError(f"monte carlo: {stats}")
+    return {"config": MONTE_CARLO, "seconds": seconds, "ok": stats.ok,
+            "tasks_completed": stats.tasks_completed, "retries": stats.retries,
+            "splits": stats.splits, "injected": stats.injected, "peak_used": stats.peak_used,
+            "cache_pins": stats.cache_pins, "cache_spills": stats.cache_spills}
+
+
+def governed(mesh, q97, gp, device="cuda"):
+    """The governed phase on ``mesh`` (the distributed phase's): the arbiter's
+    build, the path with the counters at 0, the checks, a kernel check at a
+    split piece's shape and the monte-carlo harness; prints the ``governed``
+    line and returns the path's launch counts."""
+    from spark_rapids_jni_tpu_torch.mem import MemoryGovernor, arbiter
+
+    t0 = time.perf_counter()
+    arbiter._ensure_lib()
+    build_s = time.perf_counter() - t0
+    try:
+        counts, runs, answers, budgets, gov = governed_path(mesh, q97, gp)
+        checks = check_governed(q97, gp, runs, answers, budgets, gov)
+    finally:
+        MemoryGovernor.shutdown()
+    kernel_check = governed_kernel_check(q97, device)
+    monte_carlo = governed_monte_carlo(device)
+    print(json.dumps({"governed": {
+        "mesh": [1, 1], "arbiter_build_s": build_s, "tight_share": GOV_TIGHT, "runs": runs,
+        "ungoverned_s": {"q5_local": gp["q5_local_s"], "q3_local": gp["q3_local_s"],
+                         "q3_columns_step_from_host": gp["q3_columns_s"],
+                         "run_q97_piece": gp["q97_piece_s"]},
+        "checks": checks, "kernel_check": kernel_check, "monte_carlo": monte_carlo}}))
     return counts
 
 
@@ -1710,13 +1956,15 @@ def main() -> int:
     mesh, tmp = init_single_rank()  # one NCCL group for the distributed and plans phases
     try:
         dist_counts, q97 = distributed(mesh, cfg)
-        plan_counts = plans(mesh, q97)
+        plan_counts, gp = plans(mesh, q97)
+        gov_counts = governed(mesh, q97, gp)
     finally:
         dist.destroy_process_group()
         tmp.cleanup()
-    for row in rows:  # the main path is now all four paths: their launches add up
+    for row in rows:  # the main path is now all five paths: their launches add up
         row["launches"] = (counts[row["name"]] + col_counts[row["name"]]
-                           + dist_counts[row["name"]] + plan_counts[row["name"]])
+                           + dist_counts[row["name"]] + plan_counts[row["name"]]
+                           + gov_counts[row["name"]])
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """NDS q3: star join (store_sales x item x date_dim) + grouped aggregation
-(PyTorch port of ``models/q3.py``, without its governed runners).
+(PyTorch port of ``models/q3.py``).
 
     select d_year, i_brand_id, i_brand, sum(ss_ext_sales_price)
     from date_dim, store_sales, item
@@ -20,7 +20,10 @@ STRINGS materialize only in the host-formatted result rows.  The int64 path
 is ONE plan (:func:`q3_plan`) run by the plan executor; the per-op eager
 path survives as :func:`q3_local_unfused`, its parity oracle.  The
 decimal-columns variant keeps its own device step (:func:`_q3_columns_step`;
-columns are outside the scalar plan IR).
+columns are outside the scalar plan IR).  Both governed runners,
+:func:`run_distributed_q3` and :func:`run_distributed_q3_columns`, admit one
+working set through the memory arbiter and split fact rows in half on
+SplitAndRetryOOM (exact: sums and counts are additive).
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ from spark_rapids_jni_tpu_torch.plans.compiler import segment_sum
 from spark_rapids_jni_tpu_torch.plans.ir import Bin, Cast, band_all, col, lit
 
 __all__ = ["Q3Row", "q3_local", "q3_local_unfused", "q3_plan", "make_distributed_q3",
-           "q3_columns_host_oracle", "q3_working_set_bytes"]
+           "run_distributed_q3", "run_distributed_q3_columns", "q3_columns_host_oracle",
+           "q3_working_set_bytes"]
 
 _M32 = 0xFFFFFFFF
 
@@ -240,6 +244,43 @@ def q3_working_set_bytes(facts_or_data, dp: int = 1) -> int:
     return sum(quantized_rows(len(v), dp) * v.itemsize for v in facts.values()) * 3
 
 
+def _pad_facts(facts: dict, dp: int) -> dict:
+    """dp-aligned pow2-quantized padding; pad rows carry False validity."""
+    n = len(facts["ss_item"])
+    pad = quantized_rows(n, dp) - n
+    if pad == 0:
+        return facts
+    out = {k: np.concatenate([v, np.zeros(pad, v.dtype)]) for k, v in facts.items()}
+    out["ss_item_v"][-pad:] = False
+    out["ss_date_v"][-pad:] = False
+    return out
+
+
+def _split_facts(facts: dict):
+    n = len(facts["ss_item"])
+    return [{k: v[:n // 2] for k, v in facts.items()},
+            {k: v[n // 2:] for k, v in facts.items()}]
+
+
+def run_distributed_q3(mesh, data: Q3Data, *, budget=None, task_id: int = 0,
+                       manage_task: bool = True,
+                       device: _device.DeviceLike = None) -> List[Q3Row]:
+    """Governed q3 through the plan, over ``mesh`` (every rank passing the
+    same data) or, with ``mesh`` None, on ``device`` (the card unless the
+    caller asks for the CPU): ONE admission for the plan's working set,
+    RetryOOM re-runs the plan, SplitAndRetryOOM halves fact rows and
+    re-executes the plan per half (exact: sums/counts are additive), one
+    flight-recorder task spans the plan."""
+    from spark_rapids_jni_tpu_torch.plans.runtime import run_governed_plan
+
+    geo = _geometry(data)
+    outputs = run_governed_plan(
+        mesh, q3_plan(**geo), _q3_tables(_facts(data), _dims(data)),
+        budget=budget, task_id=task_id, manage_task=manage_task, device=device,
+    )
+    return _format(_Partials(outputs["sums"], outputs["counts"]), data, geo["year0"])
+
+
 # ----------------------------------------------------------- columns variant
 # The real TPC-DS q3 selects i_brand (a STRING) and sums a DECIMAL money
 # column.  This variant's device step takes ss_ext_sales_price as a
@@ -262,7 +303,7 @@ def _dec_partials(ss_item, ss_date, price, item_brand, item_manufact,
                   n_years: int, date_sk0: int, manufact_id: int,
                   moy: int) -> _DecPartials:
     """Device body on one rank: 128-bit grouped money sum over nullable
-    Columns, summed over the data axis.
+    Columns, summed over the data axis (a local step when ``mesh`` is None).
 
     ``price.lo`` is int64 holding the unsigned low limb's bits, so its upper
     half is taken with an arithmetic shift and masked.  The three int64 sums
@@ -283,9 +324,10 @@ def _dec_partials(ss_item, ss_date, price, item_brand, item_manufact,
 
     limbs = torch.stack([seg(price.lo & _M32), seg((price.lo >> 32) & _M32), seg(price.hi)])
     counts = seg(ok.to(torch.int32))
-    group_ = axis_group(mesh, DATA_AXIS)
-    dist.all_reduce(limbs, group=group_)
-    dist.all_reduce(counts, group=group_)
+    if mesh is not None:
+        group_ = axis_group(mesh, DATA_AXIS)
+        dist.all_reduce(limbs, group=group_)
+        dist.all_reduce(counts, group=group_)
     s0, s1, sh = limbs
 
     # recombine: total = sh*2^64 + s1*2^32 + s0 (mod 2^128), s0/s1 >= 0
@@ -297,7 +339,7 @@ def _dec_partials(ss_item, ss_date, price, item_brand, item_manufact,
 
 @functools.lru_cache(maxsize=32)
 def _q3_columns_step(mesh, geo_items: tuple):
-    """The decimal-columns device step for ``mesh`` and the geometry
+    """The decimal-columns device step for ``mesh`` (None: one device) and the geometry
     ``tuple(sorted(_geometry(data).items()))``: a callable that each rank
     calls with its data shard of ``ss_item``/``ss_date`` (INT32 Columns) and
     ``price`` (a Decimal128Column), and the four dim tensors whole; returns
@@ -338,3 +380,101 @@ def q3_columns_host_oracle(data: Q3Data) -> List[Q3Row]:
     rows = [Q3Row(y, b, data.brand_names[b - 1], s) for (y, b), s in sums.items()]
     rows.sort(key=lambda r: (r.d_year, -r.sum_agg, r.brand_id))
     return rows
+
+
+def run_distributed_q3_columns(mesh, data: Q3Data, *, budget=None, task_id: int = 0,
+                               manage_task: bool = True,
+                               device: _device.DeviceLike = None) -> List[Q3Row]:
+    """Governed q3 with Decimal128Column money and a StringColumn brand
+    dimension, over ``mesh`` (every rank passing the same data) or, with
+    ``mesh`` None, on ``device`` (the card unless the caller asks for the
+    CPU).
+
+    Same protocol as :func:`run_distributed_q3` (admission, RetryOOM,
+    row-split SplitAndRetryOOM, the outcome agreed over the data axis) but
+    per-group sums are exact for every total that fits int128 (128-bit limbs
+    on the device; combined in python ints), and the result brand strings
+    are gathered from the device StringColumn through its padded view.
+    """
+    import contextlib
+
+    from spark_rapids_jni_tpu_torch.columnar.column import (
+        Column,
+        Decimal128Column,
+        next_pow2,
+        strings_column,
+        strings_from_padded,
+    )
+    from spark_rapids_jni_tpu_torch.columnar.dtypes import INT32, decimal
+    from spark_rapids_jni_tpu_torch.mem.governed import (
+        default_device_budget,
+        run_with_split_retry,
+        task_context,
+    )
+    from spark_rapids_jni_tpu_torch.parallel.mesh import axis_index, axis_size
+    from spark_rapids_jni_tpu_torch.plans.compiler import plan_device
+
+    geo = _geometry(data)
+    dp = 1 if mesh is None else axis_size(mesh, DATA_AXIS)
+    d = 0 if mesh is None else axis_index(mesh, DATA_AXIS)
+    dev = plan_device(mesh, device)
+    step = _q3_columns_step(mesh, tuple(sorted(geo.items())))
+    # analyze: ignore[governed-allocation] - shared replicated dim tables,
+    # uploaded once and shared by every retry/split piece
+    dims = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in _dims(data).items()}
+    brands = strings_column(data.brand_names, device=dev)  # the STRING dimension
+
+    hi0, lo0 = _price_limbs(data.ss_ext_sales_price)
+    facts = dict(
+        ss_item=data.ss_item_sk, ss_item_v=data.ss_item_sk_valid,
+        ss_date=data.ss_sold_date_sk, ss_date_v=data.ss_sold_date_sk_valid,
+        price_hi=hi0, price_lo=lo0,
+    )
+
+    def nbytes_of(f):
+        return q3_working_set_bytes(f, dp)
+
+    def run(f):
+        padded = _pad_facts(f, dp)
+        m = len(padded["ss_item"]) // dp
+
+        def put(v):  # this rank's data block of a padded fact array
+            return torch.from_numpy(np.ascontiguousarray(v[d * m:(d + 1) * m])).to(dev)
+
+        out = step(Column(put(padded["ss_item"]), put(padded["ss_item_v"]), INT32),
+                   Column(put(padded["ss_date"]), put(padded["ss_date_v"]), INT32),
+                   Decimal128Column(put(padded["price_hi"]), put(padded["price_lo"]),
+                                    None, decimal(38, 2)),
+                   *dims.values())
+        hi = out.hi.cpu().numpy()
+        lo = out.lo.cpu().numpy().view(np.uint64)
+        sums = [int(h) * (1 << 64) + int(x) for h, x in zip(hi, lo)]
+        return sums, out.counts.cpu().numpy()
+
+    def combine(results):
+        sums = [sum(r[0][g] for r in results) for g in range(len(results[0][0]))]
+        counts = sum(r[1] for r in results)
+        return sums, counts
+
+    budget = budget if budget is not None else default_device_budget()
+    ctx = (task_context(budget.gov, task_id) if manage_task
+           else contextlib.nullcontext())
+    with ctx:
+        sums, counts = run_with_split_retry(
+            budget, facts, nbytes_of=nbytes_of, run=run, split=_split_facts,
+            combine=combine, group=None if mesh is None else axis_group(mesh, DATA_AXIS))
+
+    # brand strings are RENDERED from the device StringColumn; the gather
+    # length is pow2-quantized (pad rows gather row 0, cut off after), as
+    # the JAX package's, so the shapes it sees stay few
+    def render_brands(idx: np.ndarray):
+        n_sel = len(idx)
+        sel_np = np.zeros(next_pow2(max(n_sel, 1)), np.int64)
+        sel_np[:n_sel] = idx
+        padded, lens = brands.padded()
+        sel = torch.from_numpy(sel_np).to(dev)
+        return strings_from_padded(padded[sel], lens[sel]).to_list()[:n_sel]
+
+    return _assemble_rows(counts, lambda g: sums[g], geo["year0"],
+                          len(data.brand_names), render_brands)

@@ -1,5 +1,5 @@
 """NDS q5: the three-channel sales/returns rollup (PyTorch port of
-``models/q5.py``, without its governed runners).
+``models/q5.py``).
 
 TPC-DS q5 unions store, catalog and web channel activity over a 14-day
 window, computing per-business-id sales, returns and profit, grouped by
@@ -22,8 +22,10 @@ ROLLUP(channel, id).  Per channel:
 The device side is ONE plan (:func:`q5_plan`): all six fact streams (3
 channels x sales/returns), their window semi-joins and segment
 aggregations, run by the plan executor and cached on (plan structure,
-dtype signature, pow2 batch bucket).  The per-op eager path survives as
-:func:`q5_local_unfused`, the parity oracle of the plan.
+dtype signature, pow2 batch bucket).  The governed runner admits the whole
+plan as one working set, and SplitAndRetryOOM re-executes the plan on split
+halves -- exact, because every aggregate is additive.  The per-op eager path
+survives as :func:`q5_local_unfused`, the parity oracle of the plan.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ __all__ = [
     "q5_local_unfused",
     "q5_plan",
     "make_distributed_q5",
+    "run_distributed_q5",
+    "run_q5_partials",
     "q5_rollup",
     "q5_host_channel_partials",
     "ChannelPartials",
@@ -307,6 +311,63 @@ def make_distributed_q5(mesh, data: Q5Data):
 
     plan, tables = _plan_and_tables(data)
     return compiled_plan_for(plan, mesh, tables)
+
+
+def run_q5_partials(
+    mesh,
+    batch: Dict[str, Dict[str, np.ndarray]],
+    *,
+    date_sk: np.ndarray,
+    date_days: np.ndarray,
+    n_dims: Tuple[int, ...],
+    lo: int,
+    hi: int,
+    budget=None,
+    task_id: int = 0,
+    manage_task: bool = True,
+    device: _device.DeviceLike = None,
+) -> Dict[str, ChannelPartials]:
+    """Governed q5 PARTIALS over a host fact batch, over ``mesh`` (every rank
+    passing the same batch) or, with ``mesh`` None, on ``device`` (the card
+    unless the caller asks for the CPU).
+
+    ``batch`` maps channel -> fact-array dict (the ``_facts_of`` field
+    names).  The whole pipeline is ONE plan under ONE governed bracket: one
+    admission for its working set, RetryOOM re-runs the plan,
+    SplitAndRetryOOM halves every fact stream and re-executes the plan per
+    half (exact -- all aggregates are additive), and one flight-recorder
+    task spans the plan.
+    """
+    from spark_rapids_jni_tpu_torch.plans.runtime import run_governed_plan
+
+    plan = q5_plan(tuple(n_dims), lo, hi)
+    tables = _q5_tables(batch, date_sk, date_days)
+    outputs = run_governed_plan(
+        mesh, plan, tables,
+        budget=budget, task_id=task_id, manage_task=manage_task, device=device,
+    )
+    return _partials_of(outputs)
+
+
+def run_distributed_q5(mesh, data: Q5Data, *, budget=None, task_id: int = 0,
+                       manage_task: bool = True,
+                       device: _device.DeviceLike = None) -> List[Q5Row]:
+    """Governed q5 over host data: the plan's partials via
+    :func:`run_q5_partials`, then the host rollup."""
+    per_channel = run_q5_partials(
+        mesh,
+        {n: _facts_of(data.channels[n]) for n in CHANNELS},
+        date_sk=data.date_sk,
+        date_days=data.date_days,
+        n_dims=tuple(len(data.channels[n].dim_sk) for n in CHANNELS),
+        lo=data.sales_date_lo,
+        hi=data.sales_date_hi,
+        budget=budget,
+        task_id=task_id,
+        manage_task=manage_task,
+        device=device,
+    )
+    return q5_rollup(per_channel, _dim_ids(data))
 
 
 def q5_host_channel_partials(facts: Dict[str, np.ndarray], n_dim: int,

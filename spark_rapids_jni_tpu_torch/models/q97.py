@@ -1,5 +1,5 @@
 """Mini NDS q97: a two-table join-count, on one device and over the mesh
-(PyTorch port of ``models/q97.py``, its per-op forms and host helpers).
+(PyTorch port of ``models/q97.py``).
 
 TPC-DS q97 counts the (customer_sk, item_sk) pairs sold in store only, in
 catalog only, and in both: a full outer join on a composite key reduced to
@@ -21,7 +21,9 @@ Distributed form, on each rank over its data shard:
 4. sum the three counters over the data axis.
 
 The shuffle's capacity is a fixed bound; rows past it are reported in
-``dropped`` and the caller retries with a larger one.
+``dropped`` and the caller retries with a larger one.  The governed runner,
+:func:`run_distributed_q97`, does so, and splits the key space when the
+memory arbiter says the batch does not fit.
 """
 
 from __future__ import annotations
@@ -252,8 +254,8 @@ def make_distributed_q97_columns(mesh: DeviceMesh, capacity: int):
 
 # ------------------------------------------------------------ host helpers --
 # Framework-neutral pieces of the governed control loop: key-space splitting,
-# working-set estimates and capacities, and the single-attempt plan run.  The
-# governed runner itself arrives with memory governance.
+# working-set estimates and capacities, the single-attempt plan run and the
+# governed runner.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,3 +363,65 @@ def combine_q97_outs(outs) -> Q97Out:
         sum(int(o.both) for o in outs),
         0,
     )
+
+
+def run_distributed_q97(
+    mesh: DeviceMesh,
+    store,
+    catalog,
+    *,
+    budget=None,
+    task_id: int = 0,
+    capacity: Optional[int] = None,
+    manage_task: bool = True,
+) -> Q97Out:
+    """Governed distributed q97 over host (numpy) inputs, every rank of
+    ``mesh`` passing the same tables.
+
+    ``store``/``catalog`` are (customer_sk, item_sk) int32 array pairs.
+    Every launch is admitted through the memory arbiter: the working set is
+    reserved before the plan runs (mem/governed.py), RetryOOM retries,
+    SplitAndRetryOOM splits the key space (exact), and shuffle-capacity
+    overflow (dropped > 0) doubles the exchange capacity and re-reserves.
+    The admission outcome is agreed over the data axis, so every rank splits
+    and grows together.
+
+    Reference protocol: RmmSpark.java:402-416; admission point analog of
+    SparkResourceAdaptorJni.cpp:1731 do_allocate.
+
+    ``manage_task=False`` joins a task context the caller already registered
+    (the Spark shape: one dedicated thread registered per task runs many
+    ops); the default registers/ends ``task_id`` itself.
+    """
+    import contextlib
+
+    from spark_rapids_jni_tpu_torch.mem.governed import (
+        default_device_budget,
+        run_with_split_retry,
+        task_context,
+    )
+
+    dp = axis_size(mesh, DATA_AXIS)
+    s_cust, s_item = (np.asarray(a, np.int32) for a in store)
+    c_cust, c_item = (np.asarray(a, np.int32) for a in catalog)
+    if budget is None:
+        budget = default_device_budget()
+    total = len(s_cust) + len(c_cust)
+    cap0 = capacity if capacity is not None else default_q97_capacity(total, dp)
+    batch = Q97Batch(s_cust, s_item, c_cust, c_item, capacity=cap0)
+
+    def run(piece: Q97Batch) -> Q97Out:
+        return run_q97_piece(mesh, piece)
+
+    ctx = (task_context(budget.gov, task_id) if manage_task
+           else contextlib.nullcontext())
+    with ctx:
+        return run_with_split_retry(
+            budget, batch,
+            nbytes_of=lambda b: q97_working_set_bytes(b, dp),
+            run=run,
+            split=split_q97_batch,
+            combine=combine_q97_outs,
+            grow=lambda b: dataclasses.replace(b, capacity=2 * b.capacity),
+            group=axis_group(mesh, DATA_AXIS),
+        )

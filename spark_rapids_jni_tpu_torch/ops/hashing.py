@@ -71,10 +71,6 @@ HashInput = Union[Column, StringColumn, Decimal128Column, StructColumn, ListColu
 
 _P1, _P2, _P4, _P5 = (signed64(p) for p in (XX_P1, XX_P2, XX_P4, XX_P5))
 
-# xxhash64 over decimals walks their Java bytes as 16-byte rows with int32
-# starts, so 16 * rows must stay below 2**31
-_MAX_DECIMAL_ROWS = 1 << 27
-
 
 def _normalize_float_bits(col: Column) -> torch.Tensor:
     """NaN -> canonical quiet NaN, -0.0 -> +0.0, as integer bit patterns:
@@ -194,13 +190,10 @@ def _decimal128_java_bytes(col: Decimal128Column):
 
 def _decimal128_spans(col: Decimal128Column):
     """(chars, starts, lens) of the Java bytes, one 16-byte row each, for
-    xxhash64 (murmur3 builds them on the card: ``mm_hash_decimal128``)."""
-    if col.size > _MAX_DECIMAL_ROWS:
-        raise ValueError(f"hashing a decimal128 column of {col.size} rows: at most "
-                         f"{_MAX_DECIMAL_ROWS}, so that its 16-byte rows' int32 starts "
-                         "do not wrap")
+    xxhash64 (murmur3 builds them on the card: ``mm_hash_decimal128``).  The
+    starts are int64, so no row count wraps them."""
     be, lens = _decimal128_java_bytes(col)
-    starts = 16 * torch.arange(col.size, dtype=torch.int32, device=be.device)
+    starts = 16 * torch.arange(col.size, dtype=torch.int64, device=be.device)
     return be.reshape(-1), starts, lens
 
 

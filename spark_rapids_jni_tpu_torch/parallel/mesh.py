@@ -14,8 +14,10 @@ collectives run over the groups of :func:`axis_group`.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
@@ -32,8 +34,10 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None, *,
     """A 2-D (data, model) mesh over every rank of the initialised process
     group, on the card unless ``device="cpu"``.  With no ``shape``, all ranks
     go on ``data``: (world, 1).  Raises when no group is initialised, when the
-    shape does not cover the world, or when the group's backend is not the
-    device's (NCCL for the card, gloo for the CPU)."""
+    shape does not cover the world, when the group's backend is not the
+    device's (NCCL for the card, gloo for the CPU), or, on the card, when
+    ``LOCAL_RANK`` is set and the current CUDA device is another card: the
+    caller pins each rank to its card (``torch.cuda.set_device``) first."""
     dev = _device.resolve(device)
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError("make_mesh: no torch.distributed process group is "
@@ -46,6 +50,12 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None, *,
     if _BACKEND.get(dev.type) != backend:
         raise RuntimeError(f"make_mesh: a {dev.type} mesh needs the "
                            f"{_BACKEND.get(dev.type)} backend, the group runs {backend}")
+    local_rank = os.environ.get("LOCAL_RANK")
+    if dev.type == "cuda" and local_rank is not None \
+            and torch.cuda.current_device() != int(local_rank):
+        raise RuntimeError(f"make_mesh: LOCAL_RANK is {local_rank} but the current CUDA "
+                           f"device is cuda:{torch.cuda.current_device()}; call "
+                           f"torch.cuda.set_device({local_rank}) first")
     return init_device_mesh(dev.type, (dp, mp), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 

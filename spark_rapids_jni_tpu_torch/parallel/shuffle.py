@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from spark_rapids_jni_tpu_torch import config
 from spark_rapids_jni_tpu_torch.columnar.column import next_pow2
 from spark_rapids_jni_tpu_torch.ops.hashing import murmur3_raw_int64, partition_mix32
 from spark_rapids_jni_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_size
@@ -37,11 +38,15 @@ class ShuffleResult(NamedTuple):
     dropped: torch.Tensor  # int32 scalar: local rows lost to capacity overflow
 
 
-def partition_of(keys: torch.Tensor, n_parts: int, placement: str = "murmur3") -> torch.Tensor:
+def partition_of(keys: torch.Tensor, n_parts: int,
+                 placement: Optional[str] = None) -> torch.Tensor:
     """Owning partition (int32) of each int64 key: the placement hash, Spark's
-    murmur3 with seed 42 (the JAX package's default) or ``mix32``
-    (:func:`partition_mix32`), reduced mod ``n_parts`` as the unsigned value
-    of its 32 bits."""
+    murmur3 with seed 42 (the default) or ``mix32`` (:func:`partition_mix32`),
+    reduced mod ``n_parts`` as the unsigned value of its 32 bits.
+    ``placement`` None reads the ``partition_hash`` flag at each call, the
+    setting that places the JAX package's rows too."""
+    if placement is None:
+        placement = config.get("partition_hash")
     if placement == "murmur3":
         h = murmur3_raw_int64(keys, 42)
     elif placement == "mix32":

@@ -6,7 +6,9 @@
   inputs, run eagerly on tensors, summed over the data axis under a mesh;
 - :mod:`plans.cache` -- executors keyed on (plan structure, mesh, dtype
   signature, pow2 batch bucket), with hit/miss/trace/execute counters;
-- :mod:`plans.runtime` -- pad, upload, run and download one execution.
+- :mod:`plans.runtime` -- pad, upload, run and download one execution, and
+  :func:`run_governed_plan`, the memory-governed bracket around it (one
+  admission, one retry/split boundary, one flight task per plan).
 """
 
 from spark_rapids_jni_tpu_torch.plans import ir
@@ -24,8 +26,12 @@ from spark_rapids_jni_tpu_torch.plans.runtime import (
     input_signature_raw,
     pad_tables,
     plan_inputs,
+    plan_retry_stats,
     plan_working_set_bytes,
+    reset_plan_retry_stats,
+    run_governed_plan,
     split_scan_tables,
+    suggested_presplit_depth,
 )
 
 __all__ = [
@@ -43,6 +49,10 @@ __all__ = [
     "input_signature_raw",
     "pad_tables",
     "plan_inputs",
+    "plan_retry_stats",
     "plan_working_set_bytes",
+    "reset_plan_retry_stats",
+    "run_governed_plan",
     "split_scan_tables",
+    "suggested_presplit_depth",
 ]

@@ -11,8 +11,8 @@
 - Hit, miss, trace, eviction and execute counters, with the cumulative
   build and execute seconds, are read through :meth:`PlanCache.stats`.
 
-Entries are LRU-bounded (64 by default, the JAX package's
-``plan_cache_size``).
+Entries are LRU-bounded by the ``plan_cache_size`` flag (``config.py``, 64
+by default), unless a cache is built with its own ``maxsize``.
 """
 
 from __future__ import annotations
@@ -22,9 +22,9 @@ import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
-__all__ = ["CompiledPlan", "PlanCache", "plan_cache"]
+from spark_rapids_jni_tpu_torch import config
 
-DEFAULT_MAXSIZE = 64
+__all__ = ["CompiledPlan", "PlanCache", "plan_cache"]
 
 
 class CompiledPlan:
@@ -48,7 +48,7 @@ class PlanCache:
     """Process-global LRU of :class:`CompiledPlan` + counters."""
 
     def __init__(self, maxsize: Optional[int] = None):
-        self._maxsize = DEFAULT_MAXSIZE if maxsize is None else maxsize
+        self._fixed_maxsize = maxsize
         self._lock = threading.RLock()
         # the LRU table + its counters: every access below goes through
         # _lock, so stats() readers never see a half-updated eviction
@@ -59,6 +59,14 @@ class PlanCache:
             "hits": 0, "misses": 0, "evictions": 0, "build_s": 0.0,
             "execute_calls": 0, "execute_s": 0.0,
         }
+
+    @property
+    def _maxsize(self) -> int:
+        """The LRU bound: this cache's own ``maxsize``, else the
+        ``plan_cache_size`` flag, read at each eviction."""
+        if self._fixed_maxsize is not None:
+            return self._fixed_maxsize
+        return int(config.get("plan_cache_size"))
 
     def get_or_compile(self, key: Tuple,
                        build: Callable[[], CompiledPlan]) -> CompiledPlan:

@@ -330,14 +330,23 @@ def input_signature(plan: ir.Plan, tables) -> Tuple:
     sig = []
     for kind, table, field in _arg_layout(plan):
         a = tables[table][field]
-        sig.append((kind, table, field, str(a.dtype), int(a.shape[0])))
+        sig.append((kind, table, field, dtype_name(a), int(a.shape[0])))
     return tuple(sig)
 
 
+def dtype_name(a) -> str:
+    """The numpy name of ``a``'s dtype, for a numpy array or a tensor (an
+    uploaded dim), so a signature is the JAX package's either way."""
+    return str(a.dtype).removeprefix("torch.")
+
+
 def plan_device(mesh, device: _device.DeviceLike = None) -> torch.device:
-    """Where a plan runs: on its mesh's device, else on ``device`` (the card
-    unless the caller asks for the CPU)."""
+    """Where a plan runs: on its mesh's device (this rank's current card for a
+    CUDA mesh), else on ``device`` (the card unless the caller asks for the
+    CPU)."""
     if mesh is not None:
+        if mesh.device_type == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
         return torch.device(mesh.device_type)
     return _device.resolve(device)
 

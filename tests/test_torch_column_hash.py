@@ -587,13 +587,15 @@ def test_mm_hash_bytes_wrapper_refuses_bad_spans_on_cpu(starts, lens):
         hash_cuda.mm_hash_bytes_cuda(chars, _offs(starts), _offs(lens), 0)
 
 
-def test_decimal128_hash_refuses_rows_whose_starts_would_wrap(monkeypatch):
-    # xxhash64 walks the Java bytes as 16-byte rows with int32 starts and
-    # refuses; murmur3 builds them per row from (hi, lo) and has no such cap
+def test_decimal128_hash_refuses_rows_whose_starts_would_wrap():
+    # the Java bytes are walked as 16-byte rows whose starts are int64, so a
+    # column past 2**27 rows (where int32 starts would wrap) is hashed, not
+    # refused: xxhash64 equals the JAX package's, as murmur3 does
     vals = [1, -(1 << 100), 3]
     col = tc.decimal128_column(vals, 38, 2, device="cpu")
-    monkeypatch.setattr(hashing, "_MAX_DECIMAL_ROWS", 2)
-    with pytest.raises(ValueError, match="int32 starts"):
-        xxhash64([col])
+    _, starts, _ = hashing._decimal128_spans(col)
+    assert starts.dtype == torch.int64 and starts.tolist() == [0, 16, 32]
+    jcol = jc.decimal128_column(vals, 38, 2)
+    assert xxhash64([col]).to_list() == jax_xxhash64([jcol]).to_list()
     assert murmur_hash32([col], seed=42).to_list() == \
-        jax_murmur_hash32([jc.decimal128_column(vals, 38, 2)], seed=42).to_list()
+        jax_murmur_hash32([jcol], seed=42).to_list()

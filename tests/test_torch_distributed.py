@@ -314,6 +314,19 @@ def test_partition_of_matches_jax(placement, n_parts):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("placement", ["murmur3", "mix32"])
+def test_partition_of_follows_the_shared_partition_hash_setting(monkeypatch, placement):
+    """With no placement given, the port places rows by the SRT_PARTITION_HASH
+    setting that places the JAX package's rows."""
+    monkeypatch.setenv("SRT_PARTITION_HASH", placement)
+    keys = _keys(4096, 9)
+    want = np.asarray(jax_shuffle.partition_of(jnp.asarray(keys), 8))
+    np.testing.assert_array_equal(partition_of(torch.from_numpy(keys), 8).numpy(), want)
+    other = {"murmur3": "mix32", "mix32": "murmur3"}[placement]
+    assert not np.array_equal(
+        partition_of(torch.from_numpy(keys), 8, placement=other).numpy(), want)
+
+
 def test_partition_of_reduces_the_unsigned_hash():
     """Hashes with the top bit set (negative as int32) take the partition of
     their unsigned value."""

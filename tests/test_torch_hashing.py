@@ -333,6 +333,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spark_rapids_jni_tpu_torch.plans.cache, spark_rapids_jni_tpu_torch.plans.compiler\n"
         "import spark_rapids_jni_tpu_torch.plans.runtime\n"
         "import spark_rapids_jni_tpu_torch.mem, spark_rapids_jni_tpu_torch.mem.governed\n"
+        "import spark_rapids_jni_tpu_torch.config, spark_rapids_jni_tpu_torch.obs\n"
+        "import spark_rapids_jni_tpu_torch.obs.seam, spark_rapids_jni_tpu_torch.obs.flight\n"
+        "import spark_rapids_jni_tpu_torch.mem.exceptions, spark_rapids_jni_tpu_torch.mem.arbiter\n"
+        "import spark_rapids_jni_tpu_torch.mem.governor, spark_rapids_jni_tpu_torch.mem.spill\n"
+        "import spark_rapids_jni_tpu_torch.mem.montecarlo\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_mesh_ranks  # what spawned gloo ranks import\n"
         "import chip_smoke\n"

@@ -1,6 +1,7 @@
 """Jobs run on every rank of a gloo group on the CPU, for the port's
 distributed parity tests (``tests/test_torch_distributed.py``,
-``tests/test_torch_q97.py``, ``tests/test_torch_plan_ranks.py``).
+``tests/test_torch_q97.py``, ``tests/test_torch_plan_ranks.py``,
+``tests/test_torch_governed_ranks.py``).
 
 :func:`run_ranks` spawns one process per rank of a (dp, mp) mesh.  Each rank
 joins a gloo group through a ``file://`` rendezvous in the caller's work
@@ -15,9 +16,11 @@ it afresh, and the JAX references stay in the test modules.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
-from typing import Callable, Dict, List, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +28,8 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from spark_rapids_jni_tpu_torch import columnar as tc
+from spark_rapids_jni_tpu_torch import config
+from spark_rapids_jni_tpu_torch.mem import BudgetedResource, MemoryGovernor, task_context
 from spark_rapids_jni_tpu_torch.mem.governed import ShuffleCapacityExceeded
 from spark_rapids_jni_tpu_torch.models import (
     Q97Batch,
@@ -32,16 +37,21 @@ from spark_rapids_jni_tpu_torch.models import (
     make_distributed_q97,
     make_distributed_q97_columns,
     make_distributed_query_step,
+    run_distributed_q5,
+    run_distributed_q97,
     run_q97_piece,
 )
 from spark_rapids_jni_tpu_torch.models import q3 as q3_mod
 from spark_rapids_jni_tpu_torch.models import q5 as q5_mod
 from spark_rapids_jni_tpu_torch.models.tpcds import generate_q3_data, generate_q5_data
+from spark_rapids_jni_tpu_torch.plans import runtime as plan_runtime
 from spark_rapids_jni_tpu_torch.plans import (
     execute_plan,
     pad_tables,
     plan_cache,
     plan_inputs,
+    plan_retry_stats,
+    reset_plan_retry_stats,
 )
 from spark_rapids_jni_tpu_torch.parallel import (
     DATA_AXIS,
@@ -212,6 +222,65 @@ def q3_columns(mesh, inputs: Arrays, geo: dict) -> Arrays:
     return {**_numpy(out), "same": np.array(int(same))}
 
 
+def _governed(mesh, limit: int, split_on_rank: int, run) -> Arrays:
+    """``run(budget, task_id)`` on this rank's own governor under a budget of
+    ``limit`` bytes, with a SplitAndRetryOOM injected first where this rank
+    is ``split_on_rank``; adds the arbiter's split count for the task, the
+    plan executions it made and the budget left in use."""
+    gov = MemoryGovernor(watchdog_period_s=0.02)
+    try:
+        budget = BudgetedResource(gov, limit)
+        reset_plan_retry_stats()
+        before = plan_cache.stats()["execute_calls"]
+        with task_context(gov, 1):
+            if dist.get_rank() == split_on_rank:
+                gov.force_split_and_retry_oom(num_ooms=1)
+            out = run(budget, 1)
+            splits = gov.get_and_reset_num_split_retry(1)
+        return {**out, "splits": np.array(splits), "used": np.array(budget.used),
+                "executions": np.array(plan_cache.stats()["execute_calls"] - before)}
+    finally:
+        gov.close()
+
+
+@_job
+def governed_q97(mesh, inputs: Arrays, limit: int, capacity: int,
+                 split_on_rank: int = -1) -> Arrays:
+    """run_distributed_q97 over the WHOLE host tables under a budget of
+    ``limit`` bytes (see :func:`_governed`)."""
+    def run(budget, task_id):
+        out = run_distributed_q97(mesh, (inputs["s_cust"], inputs["s_item"]),
+                                  (inputs["c_cust"], inputs["c_item"]), budget=budget,
+                                  task_id=task_id, capacity=capacity, manage_task=False)
+        return {"counts": np.array([out.store_only, out.catalog_only, out.both])}
+    return _governed(mesh, limit, split_on_rank, run)
+
+
+@_job
+def governed_q5(mesh, inputs: Arrays, limit: int, sf: float, seed: int,
+                split_on_rank: int = -1, presplit_on_rank: int = -1) -> Arrays:
+    """run_distributed_q5 on q5 data regenerated from (sf, seed) under a
+    budget of ``limit`` bytes (see :func:`_governed`): the rows' keys and
+    numbers, and the plan's retry stats.  With ``presplit_on_rank``, adaptive
+    admission is on and that rank alone remembers a recent split of q5, so
+    its own hint is a pre-split depth of 1 and every other rank's is 0."""
+    data = generate_q5_data(sf=sf, seed=seed)
+
+    def run(budget, task_id):
+        adaptive = (config.override(serve_adaptive=True) if presplit_on_rank >= 0
+                    else contextlib.nullcontext())
+        with adaptive:
+            if dist.get_rank() == presplit_on_rank:
+                plan_runtime._note_plan_run("q5", 0, 1, 8)
+            rows = run_distributed_q5(mesh, data, budget=budget, task_id=task_id,
+                                      manage_task=False)
+        st = plan_retry_stats()["q5"]
+        return {"keys": np.array([f"{r.channel}|{r.id}" for r in rows]),
+                "values": np.array([r[2:] for r in rows], np.int64),
+                "plan_stats": np.array([st["split_retries"], st["runs"]])}
+    return _governed(mesh, limit, split_on_rank, run)
+
+
 def _rank_main(rank: int, world: int, shape: Tuple[int, int], workdir: str,
                jobs: Sequence[Tuple[str, str, dict]]) -> None:
     torch.set_num_threads(1)
@@ -231,17 +300,27 @@ def _rank_main(rank: int, world: int, shape: Tuple[int, int], workdir: str,
 
 
 def run_ranks(shape: Tuple[int, int], jobs: Sequence[Tuple[str, str, Arrays, dict]],
-              workdir) -> List[Dict[str, Arrays]]:
+              workdir, timeout_s: Optional[float] = None) -> List[Dict[str, Arrays]]:
     """Run ``jobs`` -- (label, job name, global inputs, keyword arguments) --
     on the ranks of a ``shape`` mesh of gloo processes, all in one spawn;
-    returns each rank's ``{label: {name: array}}``, in rank order."""
+    returns each rank's ``{label: {name: array}}``, in rank order.  With
+    ``timeout_s``, ranks still running after that many seconds are killed
+    and ``TimeoutError`` is raised."""
     workdir = str(workdir)
     world = shape[0] * shape[1]
     for label, _, inputs, _ in jobs:
         np.savez(os.path.join(workdir, f"{label}.in.npz"), **inputs)
-    mp.start_processes(_rank_main, args=(world, shape, workdir,
-                                         [(label, name, kw) for label, name, _, kw in jobs]),
-                       nprocs=world, join=True, start_method="spawn")
+    ctx = mp.start_processes(_rank_main, args=(world, shape, workdir,
+                                               [(label, name, kw) for label, name, _, kw in jobs]),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
+    while not ctx.join(timeout=1.0):
+        if deadline is not None and time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            for p in ctx.processes:
+                p.join(timeout=10)
+            raise TimeoutError(f"ranks still running after {timeout_s} s")
     results = []
     for rank in range(world):
         per_label: Dict[str, Arrays] = {label: {} for label, *_ in jobs}
