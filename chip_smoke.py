@@ -91,9 +91,41 @@ port package beside it.  Otherwise it:
    a few seconds of the monte-carlo stress harness over a spillable cache of
    CUDA buffers, and prints a ``governed`` line (each call's seconds, splits,
    retries, executions, reserved bytes, peak device memory and launches,
-   and the arbiter's build seconds); then the card's name and power limit,
-   the ``kernels`` line (all seven kernels, their launches over the five
-   paths) and, last, the ``ok`` line.
+   and the arbiter's build seconds);
+12. drives the bloom filter path with the launch counters at 0 again, at
+   Spark's runtime-filter settings: four partial filters of 8,388,608 bits
+   and 6 hashes over 1,000,000 INT64 build keys (5% nulls), merged,
+   serialized to Spark's bytes and deserialized onto the card, then probed
+   with 2**26 keys (10% nulls, a quarter drawn from the build keys); the
+   largest filter (67,108,864 bits, 12 hashes) put with 4,000,000 keys and
+   probed with the same keys; 1,024 keys put into an empty largest filter;
+   ``mm_hash_long`` must launch twice per put and per probe, and each put
+   take its path (scatter, or sorted for the small insert); holds every
+   filter and the bytes bit for bit against the CPU run, the probe flags
+   on a strided 2**20-row sample, checks on the card that every inserted
+   key hits and null rows stay null, holds ``mm_hash_long`` with the
+   probe's per-row seed against its plain version, and prints a ``bloom``
+   line (times, peak memory, the false-positive share beside Spark's
+   expected fpp);
+13. drives the DECIMAL128 path with the counters at 0 again (plain torch; no
+   kernel may launch): ``multiply128`` of two DECIMAL(38,10) columns of
+   2**24 rows at scale 6, with and without ``interim_cast``, the divide,
+   integer-divide, remainder, add and subtract calls at 2**22 rows with 1%
+   zero divisors, and one call per remaining branch at 2**20 rows; holds
+   every output against the CPU run on a strided 65,536-row sample and the
+   ``DecimalUtilsTest`` vectors on the card, and prints a ``decimal`` line
+   (time, profiled kernels and peak memory per call);
+14. drives the JCUDF row path with the counters at 0 again (no kernel may
+   launch): ``convert_to_rows`` and ``convert_from_rows`` and their
+   fixed-width-optimized twins over TPC-DS store_sales as the plugin's
+   Parquet reader hands it (2**23 rows of 104 B, one 872 MB batch), both
+   directions over an (INT32, VARCHAR(100), DECIMAL(38,2)) table of 2**22
+   rows, also in batches of at most 2**26 B; holds the rows against the
+   numpy host arm on the CPU for the whole tables and the oracle arm on the
+   card, and every read-back column against its input, and prints a
+   ``rows`` line (times, phases, bytes bound, peak memory); then the card's
+   name and power limit, the ``kernels`` line (all seven kernels, their
+   launches over the eight paths) and, last, the ``ok`` line.
 
 Every check that fails raises, and the script then exits non-zero.
 """
@@ -102,6 +134,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import random
 import statistics
 import subprocess
@@ -184,12 +217,14 @@ def _bound(nbytes: int, ops: int, rates) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def _time_ms(fn) -> float:
-    for _ in range(WARMUP):
+def _time_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
+    """``fn``'s median time over ``reps`` calls after ``warmup`` calls, each
+    call between two CUDA events."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1161,13 +1196,13 @@ def check_distributed(b, cfg, outs):
     return {"q97": want, "q97_columns": want_null, "oracle_s": oracle_s}
 
 
-def _timed(fn) -> dict:
+def _timed(fn, reps: int = REPS, warmup: int = WARMUP) -> dict:
     """``fn``'s median time (``_time_ms``) and the peak device memory while it
     runs, beside what was resident before."""
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    return {"ms": _time_ms(fn), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    return {"ms": _time_ms(fn, reps, warmup), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "resident_bytes": resident}
 
 
@@ -1909,6 +1944,736 @@ def governed(mesh, q97, gp, device="cuda"):
     return counts
 
 
+# ---- the bloom filter path (BASELINE config 4) ----------------------------
+
+# Spark's runtime join filter (spark.sql.optimizer.runtime.bloomFilter.*):
+# the default expectedNumItems / numBits, and maxNumItems / maxNumBits.
+BLOOM_ITEMS, BLOOM_BITS = 1_000_000, 8_388_608
+BLOOM_MAX_ITEMS, BLOOM_MAX_BITS = 4_000_000, 67_108_864
+BLOOM_TASKS = 4  # build tasks, one partial filter each, then merged
+BLOOM_SMALL = 1024  # keys put into an empty largest filter (the sorted path)
+N_PROBE = 1 << 26  # probe keys: 512 MiB of INT64
+BLOOM_SAMPLE = 1 << 20  # probe rows held against the CPU run (strided)
+BLOOM_LAUNCHES = 2 * (BLOOM_TASKS + 2 + 2)  # mm_hash_long: two per put, two per probe
+
+
+def _spark_num_hashes(n: int, m: int) -> int:
+    """BloomFilter.optimalNumOfHashFunctions: max(1, round(m / n * ln 2))."""
+    return max(1, int(math.floor(m / n * math.log(2) + 0.5)))
+
+
+def _int64_column(vals, valid, device):
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    return c.Column(torch.from_numpy(vals).to(device),
+                    None if valid is None else torch.from_numpy(valid).to(device), c.INT64)
+
+
+def bloom_batch(device):
+    """The bloom phase's keys, drawn with numpy from a fixed seed: 4,000,000
+    build keys with 5% nulls (the first 1,000,000 build the default filter in
+    four parts, all of them the largest filter), 1,024 keys for the sorted
+    path, and 2**26 probe keys with 10% nulls, a quarter of them drawn from
+    the default filter's build keys."""
+    rng = np.random.RandomState(41)
+    build = rng.randint(-(2**63), 2**63, BLOOM_MAX_ITEMS, dtype=np.int64)
+    build_valid = rng.rand(BLOOM_MAX_ITEMS) >= 0.05
+    probe = rng.randint(-(2**63), 2**63, N_PROBE, dtype=np.int64)
+    from_build = rng.rand(N_PROBE) < 0.25
+    src = rng.randint(0, BLOOM_ITEMS, int(from_build.sum()))
+    probe[from_build] = build[src]
+    inserted = np.zeros(N_PROBE, bool)
+    inserted[from_build] = build_valid[src]
+    probe_valid = rng.rand(N_PROBE) >= 0.1
+    small = rng.randint(-(2**63), 2**63, BLOOM_SMALL, dtype=np.int64)
+    part = BLOOM_ITEMS // BLOOM_TASKS
+    return {
+        "parts": [_int64_column(build[i * part:(i + 1) * part],
+                                build_valid[i * part:(i + 1) * part], device)
+                  for i in range(BLOOM_TASKS)],
+        "big": _int64_column(build, build_valid, device),
+        "small": _int64_column(small, None, device),
+        "probe": _int64_column(probe, probe_valid, device),
+        # probe rows that must hit (an inserted non-null key, not null) and
+        # rows that hold no build key (for the false-positive share)
+        "must_hit": torch.from_numpy(inserted & probe_valid).to(device),
+        "absent": torch.from_numpy(~from_build & probe_valid).to(device),
+        "n_inserted": int(build_valid[:BLOOM_ITEMS].sum()),
+        "n_inserted_big": int(build_valid.sum()),
+    }
+
+
+def _put(f, col):
+    """``bloom_filter_put`` and the put path it took."""
+    from spark_rapids_jni_tpu_torch.ops import bloom_filter as bf
+
+    before = dict(bf.put_paths)
+    out = bf.bloom_filter_put(f, col)
+    (path,) = [p for p in before if bf.put_paths[p] != before[p]]
+    return out, path
+
+
+def _bloom_calls(b, device):
+    """The bloom phase's public calls on batch ``b``: four partial filters put
+    and merged, serialized and deserialized onto ``device`` (what Spark ships
+    to the probe tasks) and probed; the largest filter put and probed;
+    the sorted-path put.  Returns the filters, the bytes, the probe columns
+    and each put's path."""
+    from spark_rapids_jni_tpu_torch.ops import (bloom_filter_create, bloom_filter_deserialize,
+                                                bloom_filter_merge, bloom_filter_probe,
+                                                bloom_filter_serialize)
+
+    k = _spark_num_hashes(BLOOM_ITEMS, BLOOM_BITS)
+    k_max = _spark_num_hashes(BLOOM_MAX_ITEMS, BLOOM_MAX_BITS)
+    paths = {}
+    parts = []
+    for i, col in enumerate(b["parts"]):
+        f, paths[f"part{i}"] = _put(bloom_filter_create(k, BLOOM_BITS // 64, device), col)
+        parts.append(f)
+    merged = bloom_filter_merge(parts)
+    buf = bloom_filter_serialize(merged)
+    shipped = bloom_filter_deserialize(buf, device)
+    hits = bloom_filter_probe(b["probe"], shipped)
+    big, paths["largest"] = _put(bloom_filter_create(k_max, BLOOM_MAX_BITS // 64, device),
+                                 b["big"])
+    big_hits = bloom_filter_probe(b["probe"], big)
+    small, paths["small"] = _put(bloom_filter_create(k_max, BLOOM_MAX_BITS // 64, device),
+                                 b["small"])
+    return {"parts": parts, "merged": merged, "buf": buf, "shipped": shipped, "hits": hits,
+            "big": big, "big_hits": big_hits, "small": small, "paths": paths,
+            "num_hashes": [k, k_max]}
+
+
+def bloom_path(b, device="cuda"):
+    """The bloom path on ``device`` with the counters at 0; returns the
+    counts, the outputs and the path's peak device memory."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hash_cuda.reset_launches()
+    outs = _bloom_calls(b, device)
+    torch.cuda.synchronize()
+    counts = dict(hash_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(json.dumps({"bloom_launches": counts, "put_paths": outs["paths"]}))
+    if outs["num_hashes"] != [6, 12]:
+        raise AssertionError(f"num_hashes {outs['num_hashes']} != Spark's [6, 12]")
+    want_paths = {**{f"part{i}": "scatter" for i in range(BLOOM_TASKS)},
+                  "largest": "scatter", "small": "sorted"}
+    if outs["paths"] != want_paths:
+        raise AssertionError(f"put paths {outs['paths']} != {want_paths}")
+    want = {k: (BLOOM_LAUNCHES if k == "mm_hash_long" else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"bloom launches {counts} != {want}")
+    return counts, outs, peak
+
+
+def check_bloom(b, outs):
+    """Filters and bytes equal the CPU run bit for bit; probe flags equal it
+    on a strided sample; on the card every inserted non-null key hits and null
+    rows stay null.  Returns the false-positive shares and the CPU seconds."""
+    from spark_rapids_jni_tpu_torch.ops import bloom_filter_probe
+
+    t0 = time.perf_counter()
+    idx = torch.arange(0, N_PROBE, N_PROBE // BLOOM_SAMPLE)
+    probe = _on(b["probe"], "cpu")
+    cpu_b = {"parts": [_on(c, "cpu") for c in b["parts"]], "big": _on(b["big"], "cpu"),
+             "small": _on(b["small"], "cpu"),
+             "probe": dataclasses.replace(probe, data=probe.data[idx],
+                                          validity=probe.validity[idx])}
+    cpu = _bloom_calls(cpu_b, "cpu")
+    cpu_s = time.perf_counter() - t0
+    for name in ("merged", "shipped", "big", "small"):
+        _require_equal(f"bloom {name} longs", outs[name].longs, cpu[name].longs)
+    for i, (g, w) in enumerate(zip(outs["parts"], cpu["parts"])):
+        _require_equal(f"bloom part {i} longs", g.longs, w.longs)
+    if outs["buf"] != cpu["buf"]:
+        raise AssertionError("serialized bloom filter bytes differ from the CPU run")
+    if cpu["paths"] != outs["paths"]:
+        raise AssertionError(f"CPU put paths {cpu['paths']} != {outs['paths']}")
+    fpp = {}
+    for name in ("hits", "big_hits"):
+        got = outs[name]
+        _require_equal(f"bloom {name} (sample)", got.data[idx.to(got.data.device)],
+                       cpu[name].data)
+        _require_equal(f"bloom {name} validity", got.validity, b["probe"].validity)
+        missed = int((b["must_hit"] & ~got.data).sum())
+        if missed:
+            raise AssertionError(f"bloom {name}: {missed} inserted keys probe false")
+        fpp[name] = float(got.data[b["absent"]].float().mean())
+    return fpp, cpu_s, int(b["must_hit"].sum())
+
+
+def _spark_fpp(n: int, m: int, k: int) -> float:
+    """The expected false-positive probability of (n keys, m bits, k hashes)."""
+    return (1.0 - math.exp(-k * n / m)) ** k
+
+
+def time_bloom(b, outs, device="cuda"):
+    """Each bloom call's time (CUDA events, median of 20 after 3), the
+    deserialize host to host, and mm_hash_long at the probe's shape (per-row
+    h1 seed) against its plain version."""
+    from spark_rapids_jni_tpu_torch.ops import (bloom_filter_create, bloom_filter_deserialize,
+                                                bloom_filter_merge, bloom_filter_probe,
+                                                bloom_filter_put, bloom_filter_serialize)
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    k, k_max = outs["num_hashes"]
+    empty = bloom_filter_create(k, BLOOM_BITS // 64, device)
+    empty_max = bloom_filter_create(k_max, BLOOM_MAX_BITS // 64, device)
+    ms = {
+        "put_part": _time_ms(lambda: bloom_filter_put(empty, b["parts"][0])),
+        "merge": _time_ms(lambda: bloom_filter_merge(outs["parts"])),
+        "serialize": _time_ms(lambda: bloom_filter_serialize(outs["merged"])),
+        "probe": _time_ms(lambda: bloom_filter_probe(b["probe"], outs["shipped"])),
+        "put_largest": _time_ms(lambda: bloom_filter_put(empty_max, b["big"])),
+        "probe_largest": _time_ms(lambda: bloom_filter_probe(b["probe"], outs["big"])),
+        "put_small_sorted": _time_ms(lambda: bloom_filter_put(empty_max, b["small"])),
+    }
+    host = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        bloom_filter_deserialize(outs["buf"], device)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    keys = b["probe"].data
+    h1 = hash_cuda.mm_hash_long_cuda(keys, 0)
+    err = _require_equal("mm_hash_long (bloom h2, row seed)",
+                         hash_cuda.mm_hash_long_cuda(keys, h1),
+                         hash_cuda.mm_hash_long_torch(keys, h1))
+    kernel = {"n": N_PROBE, "max_abs_err": err,
+              "kernel_ms": _time_ms(lambda: hash_cuda.mm_hash_long_cuda(keys, h1)),
+              "plain_ms": _time_ms(lambda: hash_cuda.mm_hash_long_torch(keys, h1))}
+    return ms, statistics.median(host), kernel
+
+
+def bloom(device="cuda"):
+    """The bloom phase: the path with the counters at 0, the checks, the
+    times; prints the ``bloom`` line and returns the path's launch counts."""
+    t0 = time.perf_counter()
+    b = bloom_batch(device)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts, outs, peak = bloom_path(b, device)
+    fpp, cpu_s, must_hit = check_bloom(b, outs)
+    ms, deserialize_s, kernel = time_bloom(b, outs, device)
+    k, k_max = outs["num_hashes"]
+    print(json.dumps({"bloom": {
+        "n_probe": N_PROBE, "num_hashes": outs["num_hashes"],
+        "num_bits": [BLOOM_BITS, BLOOM_MAX_BITS], "build_keys": [BLOOM_ITEMS, BLOOM_MAX_ITEMS],
+        "tasks": BLOOM_TASKS, "serialized_bytes": len(outs["buf"]), "put_paths": outs["paths"],
+        "ms": ms, "deserialize_host_to_host_s": deserialize_s, "path_peak_mem_bytes": peak,
+        "false_positive_share": fpp,
+        "spark_expected_fpp": {"hits": _spark_fpp(b["n_inserted"], BLOOM_BITS, k),
+                               "big_hits": _spark_fpp(b["n_inserted_big"], BLOOM_MAX_BITS,
+                                                      k_max)},
+        "checks": {"must_hit_rows": must_hit, "sample_rows": BLOOM_SAMPLE, "cpu_s": cpu_s},
+        "mm_hash_long": kernel, "launches": counts["mm_hash_long"], "batch_gen_s": gen_s}}))
+    return counts
+
+
+# ---- the DECIMAL128 path (BASELINE config 4) --------------------------------
+
+N_DEC = 1 << 24  # rows of multiply128's columns (2 x 256 MiB)
+N_DEC_DIV = 1 << 22  # rows of the divide, remainder and add/subtract calls
+N_DEC_BRANCH = 1 << 20  # rows of the calls that reach the remaining branches
+DEC_SAMPLE = 1 << 16  # rows of each call held against the CPU run (strided)
+DEC_REPS, DEC_WARMUP = 5, 1
+
+
+def _dec_specials():
+    """0, +-(10**38 - 1) and +-10**k for k in 0..37."""
+    return [0, 10**38 - 1, -(10**38 - 1)] + [s * 10**k for k in range(38) for s in (1, -1)]
+
+
+def _dec_words(rng, n, specials):
+    """``n`` unscaled DECIMAL(38) values as (hi, lo) int64 words: the
+    specials first, then magnitudes of 1-38 digits (the digit count uniform),
+    mixed signs."""
+    digits = rng.integers(1, 39, n)
+    hi = np.zeros(n, np.int64)
+    lo = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, n, dtype=np.int64,
+                      endpoint=True).view(np.uint64)
+    short = digits <= 19
+    lo[short] = rng.integers(0, np.uint64(10) ** digits[short].astype(np.uint64),
+                             dtype=np.uint64)
+    hi_max = np.array([10**d >> 64 for d in range(39)], dtype=np.int64)
+    hi[~short] = rng.integers(0, hi_max[digits[~short]])  # value < hi_max * 2**64 <= 10**d
+    neg = rng.random(n) < 0.5
+    nlo = ~lo + np.uint64(1)
+    nhi = ~hi + (nlo == 0)
+    lo, hi = np.where(neg, nlo, lo), np.where(neg, nhi, hi)
+    for i, v in enumerate(specials):
+        v &= (1 << 128) - 1
+        hi[i] = np.uint64(v >> 64).astype(np.int64)
+        lo[i] = np.uint64(v & 0xFFFFFFFFFFFFFFFF)
+    return hi, lo.view(np.int64)
+
+
+def _dec_column(hi, lo, valid, scale, device):
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    return c.Decimal128Column(torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device),
+                              torch.from_numpy(valid).to(device), c.decimal(38, scale))
+
+
+def decimal_batch(device):
+    """DECIMAL(38,10) columns a and b of N_DEC rows (numpy seed 97, 5% nulls
+    each), and b's first N_DEC_DIV rows with 1% zero divisors."""
+    rng = np.random.default_rng(97)
+    specials = _dec_specials()
+    a_hi, a_lo = _dec_words(rng, N_DEC, specials)
+    b_hi, b_lo = _dec_words(rng, N_DEC, specials[::-1])
+    a_valid = rng.random(N_DEC) >= 0.05
+    b_valid = rng.random(N_DEC) >= 0.05
+    z = np.flatnonzero(rng.random(N_DEC_DIV) < 0.01)
+    bz_hi, bz_lo = b_hi[:N_DEC_DIV].copy(), b_lo[:N_DEC_DIV].copy()
+    bz_hi[z], bz_lo[z] = 0, 0
+    return {"a": _dec_column(a_hi, a_lo, a_valid, 10, device),
+            "b": _dec_column(b_hi, b_lo, b_valid, 10, device),
+            "bz": _dec_column(bz_hi, bz_lo, b_valid[:N_DEC_DIV], 10, device),
+            "zero_divisors": int(z.size)}
+
+
+def _dec_head(col, n, scale):
+    """The first ``n`` rows of a decimal column, read at another scale."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    return c.Decimal128Column(col.hi[:n], col.lo[:n], col.validity[:n], c.decimal(38, scale))
+
+
+def _decimal_calls(d):
+    """name -> (op, a, b, extra arguments): each decimal entry point at its
+    size, then one call per branch the others do not reach."""
+    a, b, bz = d["a"], d["b"], d["bz"]
+    a4 = _dec_head(a, N_DEC_DIV, 10)
+    return {
+        "multiply128_interim": ("multiply128", a, b, (6, True)),
+        "multiply128": ("multiply128", a, b, (6, False)),
+        "divide128": ("divide128", a4, bz, (6,)),
+        "integer_divide128": ("integer_divide128", a4, bz, ()),
+        "remainder128": ("remainder128", a4, bz, (10,)),
+        "add128": ("add128", a4, bz, (10,)),
+        "subtract128": ("subtract128", a4, bz, (10,)),
+        # n_shift_exp = -40: the staged multiply around two divides
+        "divide128_shift_gt_38": ("divide128", _dec_head(a, N_DEC_BRANCH, 0),
+                                  _dec_head(bz, N_DEC_BRANCH, 38), (2,)),
+        # n_shift_exp = 10: a truncating divide, then a rounding one
+        "divide128_n_shift_exp_gt_0": ("divide128", _dec_head(a, N_DEC_BRANCH, 10),
+                                       _dec_head(bz, N_DEC_BRANCH, 0), (0,)),
+        # d_shift_exp = 4: the divisor itself rounded down to the result scale
+        "remainder128_d_shift_exp_gt_0": ("remainder128", _dec_head(a, N_DEC_BRANCH, 3),
+                                          _dec_head(bz, N_DEC_BRANCH, 5), (1,)),
+    }
+
+
+def _dec_call(spec):
+    from spark_rapids_jni_tpu_torch.ops import decimal128
+
+    op, a, b, extra = spec
+    return getattr(decimal128, op)(a, b, *extra)
+
+
+def _dec_fields(out):
+    """The tensors of an (overflow, result) pair: flags, validity and words."""
+    ov, res = out
+    words = [res.hi, res.lo] if hasattr(res, "hi") else [res.data]
+    return [ov.data, ov.validity] + words + [res.validity]
+
+
+def decimal_path(d):
+    """Every decimal call once on the card with the counters at 0: plain torch,
+    no kernel of the hash wrappers may launch."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    torch.cuda.synchronize()
+    hash_cuda.reset_launches()
+    outs = {name: _dec_call(spec) for name, spec in _decimal_calls(d).items()}
+    torch.cuda.synchronize()
+    counts = dict(hash_cuda.launches)
+    print(json.dumps({"decimal_launches": counts}))
+    if any(counts.values()):
+        raise AssertionError(f"the decimal path launched hash kernels: {counts}")
+    return counts, outs
+
+
+def check_decimal(d, outs):
+    """Each call's outputs equal the CPU run on a strided DEC_SAMPLE-row
+    sample (the functions are row-wise); returns the CPU seconds."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    def take(col, idx):
+        return c.Decimal128Column(col.hi[idx].cpu(), col.lo[idx].cpu(), col.validity[idx].cpu(),
+                                  col.dtype)
+
+    t0 = time.perf_counter()
+    for name, (op, a, b, extra) in _decimal_calls(d).items():
+        idx = torch.arange(0, a.size, a.size // DEC_SAMPLE, device=a.device)
+        want = _dec_call((op, take(a, idx), take(b, idx), extra))
+        for i, (g, w) in enumerate(zip(_dec_fields(outs[name]), _dec_fields(want))):
+            _require_equal(f"{name} field {i}", g[idx], w)
+    return time.perf_counter() - t0
+
+
+# DecimalUtilsTest vectors (tests/test_decimal128.py): (op, lhs, rhs, scale,
+# expected; None where the row overflows)
+DECIMAL_UTILS_VECTORS = [
+    ("remainder128",
+     ["-80968577325845461854951721352418610.13", "-80968577325845461854951721352418610.13",
+      "-66686472768705331734321352506496901.71"],
+     ["6749200345857154099505910298895800952.1", "-6749200345857154099505910298895800952.1",
+      "-43880265997097383351377368851255372.5"], 2,
+     ["-80968577325845461854951721352418610.13", "-80968577325845461854951721352418610.13",
+      "-22806206771607948382943983655241529.21"]),
+    ("remainder128", ["5776949384953805890688943467625198736"],
+     ["-67337920196996830.354487679299"], 7, ["16310460742282291.8108019"]),
+    ("remainder128", ["5776949384953805890688943467625198736"],
+     ["-6733792019699683035.4487679299"], 10, ["3585222007130884413.9709383255"]),
+    ("divide128",
+     ["60250054953505368.439892586764888491018", "91910085134512953.335347579448489062875",
+      "51312633107598808.869351260608653423886"],
+     ["97982875273794447.385070145919990343867", "94478503341597285.814104936062234698349",
+      "92266075543848323.800466593082956765923"], 6, ["0.614904", "0.972815", "0.556138"]),
+    ("divide128", ["100000000000000000000000000000000"],
+     ["3.0000000000000000000000000000000000000"], 6,
+     ["33333333333333333333333333333333.333333"]),
+    ("add128",
+     ["9191008513307131620269245301.1615457290", "-9191008513307131620269245301.1615457290"],
+     ["9447850332473678680446404122.5624623187", "-9447850332473678680446404122.5624623187"],
+     10, [None, None]),
+    ("add128",
+     ["9191008513307131620269245301.1615457290", "-7949989536398283250841565918.6123449781"],
+     ["451635271134476686911387864.48", "3022290197578200820919308997.64"], 9,
+     ["9642643784441608307180633165.641545729", "-4927699338820082429922256920.972344978"]),
+    ("multiply128", ["50000000000000000000000000000000000000"], ["2"], 0, [None]),
+    ("add128", ["99999999999999999999999999999999999999"], ["1"], 0, [None]),
+    ("subtract128", ["-99999999999999999999999999999999999999"], ["1"], 0, [None]),
+]
+
+
+def _dstr(s):
+    """A Java BigDecimal string -> (unscaled int, scale)."""
+    import decimal as pydec
+
+    sign, digits, exp = pydec.Decimal(s).as_tuple()
+    return int("".join(map(str, digits))) * (-1 if sign else 1), -exp
+
+
+def check_decimal_utils_vectors(device):
+    """The DecimalUtilsTest vectors give their expected values on ``device``."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+    from spark_rapids_jni_tpu_torch.ops import decimal128
+
+    def col(strings):
+        vs = [_dstr(s) for s in strings]
+        (scale,) = {sc for _, sc in vs}
+        return c.decimal128_column([v for v, _ in vs], 38, scale, device)
+
+    for i, (op, lhs, rhs, scale, expected) in enumerate(DECIMAL_UTILS_VECTORS):
+        ov, res = getattr(decimal128, op)(col(lhs), col(rhs), scale)
+        if ov.to_list() != [e is None for e in expected]:
+            raise AssertionError(f"DecimalUtilsTest vector {i} ({op}): overflow {ov.to_list()}")
+        for g, e in zip(res.unscaled_to_list(), expected):
+            if e is not None and (g, scale) != _dstr(e):
+                raise AssertionError(f"DecimalUtilsTest vector {i} ({op}): {g} != {e}")
+    return len(DECIMAL_UTILS_VECTORS)
+
+
+def _profiled_kernels(fn) -> int:
+    """The CUDA kernels (and device copies) that ``fn`` runs, as the profiler
+    records them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def time_decimal(d):
+    """Each call's time (CUDA events, median of DEC_REPS after DEC_WARMUP) and
+    peak memory, and the kernels the profiler sees in one more call."""
+    calls = {}
+    for name, spec in _decimal_calls(d).items():
+        line = _timed(lambda spec=spec: _dec_call(spec), DEC_REPS, DEC_WARMUP)
+        line.update({"n": spec[1].size,
+                     "profiled_kernels": _profiled_kernels(lambda spec=spec: _dec_call(spec))})
+        calls[name] = line
+    return calls
+
+
+def decimal(device="cuda"):
+    """The decimal phase: the path with the counters at 0, the checks against
+    the CPU and the DecimalUtilsTest vectors, the times; prints the
+    ``decimal`` line and returns the path's launch counts."""
+    t0 = time.perf_counter()
+    d = decimal_batch(device)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts, outs = decimal_path(d)
+    overflow_rows = {k: int(v[0].data.sum()) for k, v in outs.items()}
+    cpu_s = check_decimal(d, outs)
+    del outs
+    n_vectors = check_decimal_utils_vectors(device)
+    print(json.dumps({"decimal": {
+        "n": N_DEC, "n_div": N_DEC_DIV, "n_branch": N_DEC_BRANCH,
+        "zero_divisors": d["zero_divisors"], "overflow_rows": overflow_rows,
+        "calls": time_decimal(d),
+        "checks": {"sample_rows": DEC_SAMPLE, "cpu_s": cpu_s,
+                   "decimal_utils_vectors": n_vectors},
+        "batch_gen_s": gen_s}}))
+    return counts
+
+
+# ---- the JCUDF row path (BASELINE config 3) ---------------------------------
+
+N_ROWS_FIXED = 1 << 23  # store_sales rows: 2**23 x 104 B = one 872 MB batch
+N_ROWS_VAR = 1 << 22  # rows of the (INT32, VARCHAR(100), DECIMAL(38,2)) table
+ROWS_SPLIT_BYTES = 1 << 26  # a batch limit that splits the variable table
+ROWS_REPS, ROWS_WARMUP = 5, 1
+
+
+def store_sales_columns(device):
+    """TPC-DS store_sales as the plugin's Parquet reader hands it (numpy seed
+    43): the nine INT32 surrogate keys (ss_sold_date_sk .. ss_promo_sk) with
+    4% nulls, ss_ticket_number INT64, ss_quantity INT32 and the twelve
+    DECIMAL(7,2) money columns (DECIMAL32)."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    rng = np.random.RandomState(43)
+    n = N_ROWS_FIXED
+
+    def col(data, dtype, null_frac=0.0):
+        valid = torch.from_numpy(rng.rand(n) >= null_frac).to(device) if null_frac else None
+        return c.Column(torch.from_numpy(data).to(device), valid, dtype)
+
+    cols = [col(rng.randint(1, 2**31 - 1, n).astype(np.int32), c.INT32, 0.04)
+            for _ in range(9)]
+    cols.append(col(rng.randint(1, 2**40, n, dtype=np.int64), c.INT64))
+    cols.append(col(rng.randint(1, 101, n).astype(np.int32), c.INT32))
+    cols += [col(rng.randint(-(10**7) + 1, 10**7, n).astype(np.int32), c.decimal(7, 2))
+             for _ in range(12)]
+    return cols
+
+
+def var_columns(device):
+    """(INT32, VARCHAR(100) with 10% nulls, DECIMAL(38,2)) of N_ROWS_VAR rows
+    (numpy seed 47), from the column-hash phase's generators."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    rng = np.random.RandomState(47)
+    i32 = c.Column(torch.from_numpy(rng.randint(-(2**31), 2**31, N_ROWS_VAR, dtype=np.int64)
+                                    .astype(np.int32)).to(device), None, c.INT32)
+    return [i32, _varchar(rng, N_ROWS_VAR, 100, 0.1, device), _decimals(rng, N_ROWS_VAR, device)]
+
+
+def _rows_calls(fixed, var):
+    """name -> zero-argument call of the public row API; the from-rows calls
+    read the rows of the matching to-rows call, made here once."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        convert_from_rows, convert_from_rows_fixed_width_optimized, convert_to_rows,
+        convert_to_rows_fixed_width_optimized)
+
+    fixed_types = [col.dtype for col in fixed]
+    var_types = [col.dtype for col in var]
+    fixed_rows = convert_to_rows(fixed)
+    var_rows = convert_to_rows(var)
+    return {
+        "to_rows[store_sales]": lambda: convert_to_rows(fixed),
+        "to_rows_fixed_width_optimized[store_sales]":
+            lambda: convert_to_rows_fixed_width_optimized(fixed),
+        "from_rows[store_sales]": lambda: [convert_from_rows(r, fixed_types)
+                                           for r in fixed_rows],
+        "from_rows_fixed_width_optimized[store_sales]":
+            lambda: [convert_from_rows_fixed_width_optimized(r, fixed_types)
+                     for r in fixed_rows],
+        "to_rows[int32,varchar,decimal128]": lambda: convert_to_rows(var),
+        "to_rows[int32,varchar,decimal128](2^26 B batches)":
+            lambda: convert_to_rows(var, max_batch_bytes=ROWS_SPLIT_BYTES),
+        "from_rows[int32,varchar,decimal128]": lambda: [convert_from_rows(r, var_types)
+                                                        for r in var_rows],
+    }
+
+
+def rows_path(fixed, var):
+    """Every row call once on the card with the counters at 0 (no hash kernel
+    may launch); returns the counts and the outputs."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    torch.cuda.synchronize()
+    calls = _rows_calls(fixed, var)
+    hash_cuda.reset_launches()
+    outs = {name: call() for name, call in calls.items()}
+    torch.cuda.synchronize()
+    counts = dict(hash_cuda.launches)
+    print(json.dumps({"rows_launches": counts}))
+    if any(counts.values()):
+        raise AssertionError(f"the row path launched hash kernels: {counts}")
+    return counts, outs
+
+
+def _require_rows_equal(what, got, want):
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} batches != {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        _require_equal(f"{what} batch {i} offsets", g.offsets, w.offsets)
+        _require_equal(f"{what} batch {i} bytes", g.child.data, w.child.data)
+
+
+def _column_tensors(col):
+    """A column's tensors, validity as a bool tensor (all-valid included)."""
+    if hasattr(col, "chars"):
+        return [col.chars, col.offsets, col.is_valid()]
+    if hasattr(col, "hi"):
+        return [col.hi, col.lo, col.is_valid()]
+    return [col.data, col.is_valid()]
+
+
+def _require_columns_equal(what, got, want):
+    for c, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{what} column {c}: {g.dtype} != {w.dtype}")
+        for i, (gt, wt) in enumerate(zip(_column_tensors(g), _column_tensors(w))):
+            _require_equal(f"{what} column {c} field {i}", gt, wt)
+
+
+def _concat_columns(parts):
+    """Batches of read-back columns joined into one set of columns (the
+    string offsets rebased), to compare with the table they came from."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    out = []
+    for cols in zip(*parts):
+        valid = torch.cat([col.is_valid() for col in cols])
+        if hasattr(cols[0], "chars"):
+            offs = [cols[0].offsets]
+            for col in cols[1:]:
+                offs.append(col.offsets[1:] + offs[-1][-1])
+            out.append(c.StringColumn(torch.cat([col.chars for col in cols]), torch.cat(offs),
+                                      valid))
+        elif hasattr(cols[0], "hi"):
+            out.append(c.Decimal128Column(torch.cat([col.hi for col in cols]),
+                                          torch.cat([col.lo for col in cols]), valid,
+                                          cols[0].dtype))
+        else:
+            out.append(c.Column(torch.cat([col.data for col in cols]), valid, cols[0].dtype))
+    return out
+
+
+def check_rows(fixed, var, outs):
+    """The card's rows equal the numpy host arm on the CPU for whole tables,
+    the oracle arm on the card equals the fast arm, and every read-back
+    column equals its input exactly.  Returns the CPU seconds and the split
+    batch sizes."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch.ops import convert_to_rows
+
+    t0 = time.perf_counter()
+    cpu_fixed = [_on(col, "cpu") for col in fixed]
+    cpu_var = [_on(col, "cpu") for col in var]
+    _require_rows_equal("store_sales rows", outs["to_rows[store_sales]"],
+                        convert_to_rows(cpu_fixed))
+    _require_rows_equal("var rows", outs["to_rows[int32,varchar,decimal128]"],
+                        convert_to_rows(cpu_var))
+    split = outs["to_rows[int32,varchar,decimal128](2^26 B batches)"]
+    _require_rows_equal("var rows (2^26 B batches)", split,
+                        convert_to_rows(cpu_var, max_batch_bytes=ROWS_SPLIT_BYTES))
+    cpu_s = time.perf_counter() - t0
+    sizes = [b.size for b in split]
+    if len(sizes) < 2 or any(s % 32 for s in sizes[:-1]) or sum(sizes) != N_ROWS_VAR:
+        raise AssertionError(f"split batches {sizes}")
+    _require_rows_equal("store_sales fixed-width optimized rows",
+                        outs["to_rows_fixed_width_optimized[store_sales]"],
+                        outs["to_rows[store_sales]"])
+    with config.override(rows_plan_cache=False):
+        oracle = {name: call() for name, call in _rows_calls(fixed, var).items()
+                  if "fixed_width_optimized" not in name}
+    for name, rows in oracle.items():
+        if name.startswith("to_rows"):
+            _require_rows_equal(f"{name} oracle arm", outs[name], rows)
+        else:
+            for g, w in zip(outs[name], rows):
+                _require_columns_equal(f"{name} oracle arm", g, w)
+    for name in ("from_rows[store_sales]", "from_rows_fixed_width_optimized[store_sales]"):
+        (back,) = outs[name]
+        _require_columns_equal(f"{name} round trip", back, fixed)
+    (back,) = outs["from_rows[int32,varchar,decimal128]"]
+    _require_columns_equal("var round trip", back, var)
+    from spark_rapids_jni_tpu_torch.ops import convert_from_rows
+
+    parts = [convert_from_rows(b, [col.dtype for col in var]) for b in split]
+    _require_columns_equal("var round trip (2^26 B batches)", _concat_columns(parts), var)
+    return cpu_s, sizes
+
+
+def _table_bytes(cols) -> int:
+    """Bytes a conversion reads from (or writes to) columns: values, string
+    chars and offsets, and a validity byte per row of each nullable column."""
+    total = 0
+    for col in cols:
+        for t in ([col.chars, col.offsets] if hasattr(col, "chars")
+                  else [col.hi, col.lo] if hasattr(col, "hi") else [col.data]):
+            total += t.numel() * t.element_size()
+        if col.validity is not None:
+            total += col.validity.numel()
+    return total
+
+
+def _rows_bytes(batches) -> int:
+    return sum(b.child.data.numel() + 4 * b.offsets.numel() for b in batches)
+
+
+def time_rows(fixed, var, outs, rates):
+    """Each row call's time (CUDA events, median of ROWS_REPS after
+    ROWS_WARMUP) and peak memory beside its bytes bound (columns read plus rows
+    written, or the reverse), and the PHASES of one call."""
+    from spark_rapids_jni_tpu_torch.ops import row_conversion
+
+    lines = {}
+    for name, call in _rows_calls(fixed, var).items():
+        cols = fixed if "store_sales" in name else var
+        rows = outs["to_rows[store_sales]" if "store_sales" in name
+                    else "to_rows[int32,varchar,decimal128]"]
+        nbytes = _table_bytes(cols) + _rows_bytes(outs[name] if name.startswith("to_rows")
+                                                  else rows)
+        line = _timed(call, ROWS_REPS, ROWS_WARMUP)
+        torch.cuda.synchronize()
+        row_conversion.PHASES.reset()
+        call()
+        torch.cuda.synchronize()
+        line.update({"phases_s": row_conversion.PHASES.snapshot(), "bytes": nbytes,
+                     **_bound(nbytes, 0, rates)})
+        lines[name] = line
+    return lines
+
+
+def jcudf_rows(rates, device="cuda"):
+    """The row phase: the path with the counters at 0, the checks, the times;
+    prints the ``rows`` line and returns the path's launch counts."""
+    from spark_rapids_jni_tpu_torch.ops.row_conversion import compute_layout
+
+    t0 = time.perf_counter()
+    fixed, var = store_sales_columns(device), var_columns(device)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    layout = {"store_sales": compute_layout([col.dtype for col in fixed])[3],
+              "int32,varchar,decimal128": compute_layout([col.dtype for col in var])[3]}
+    if layout != {"store_sales": 103, "int32,varchar,decimal128": 33}:
+        raise AssertionError(f"size_per_row {layout}")
+    counts, outs = rows_path(fixed, var)
+    cpu_s, sizes = check_rows(fixed, var, outs)
+    print(json.dumps({"rows": {
+        "n_fixed": N_ROWS_FIXED, "n_var": N_ROWS_VAR, "size_per_row": layout,
+        "store_sales_batch_bytes": int(outs["to_rows[store_sales]"][0].child.data.numel()),
+        "var_rows_bytes": _rows_bytes(outs["to_rows[int32,varchar,decimal128]"]),
+        "split_batch_rows": sizes, "calls": time_rows(fixed, var, outs, rates),
+        "checks": {"cpu_host_arm_s": cpu_s, "oracle_arm": "equal", "round_trips": "equal"},
+        "batch_gen_s": gen_s}}))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1961,10 +2726,10 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
         tmp.cleanup()
-    for row in rows:  # the main path is now all five paths: their launches add up
-        row["launches"] = (counts[row["name"]] + col_counts[row["name"]]
-                           + dist_counts[row["name"]] + plan_counts[row["name"]]
-                           + gov_counts[row["name"]])
+    path_counts = [counts, col_counts, dist_counts, plan_counts, gov_counts, bloom(),
+                   decimal(), jcudf_rows(rates)]
+    for row in rows:  # the main path is now all eight paths: their launches add up
+        row["launches"] = sum(c[row["name"]] for c in path_counts)
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

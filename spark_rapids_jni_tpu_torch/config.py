@@ -214,11 +214,11 @@ register("cast_device_parse", "auto",
          "picks by backend like json_device_render (round 20).",
          env="SRT_CAST_DEVICE_PARSE", parser=_parse_device_render)
 register("rows_device_path", "auto",
-         "Backend arm of ops/row_conversion.py's cached-permutation "
-         "fast path: True = device fused gather, False = the twin-"
-         "pinned numpy host transpose, 'auto' (default) picks by backend "
-         "(round 20).", env="SRT_ROWS_DEVICE_PATH",
-         parser=_parse_device_render)
+         "Arm of ops/row_conversion.py's cached-permutation fast path: "
+         "True = the torch gather on the columns' device, False = the "
+         "numpy host transpose, 'auto' (default) picks by the columns' "
+         "device (the torch arm for CUDA tensors, numpy for CPU ones).",
+         env="SRT_ROWS_DEVICE_PATH", parser=_parse_device_render)
 register("rows_plan_cache", True,
          "Cached byte-permutation row<->column plans (round 20): "
          "precompute the (src,dst) byte permutation of the fixed "

@@ -1,4 +1,5 @@
-"""Moving columns between the JAX package and the port, through numpy.
+"""Moving columns and bloom filters between the JAX package and the port,
+through numpy.
 
 A JAX column's fields give numpy arrays (``np.asarray(col.data)``,
 ``np.asarray(col.validity)``) and its dtype carries a ``kind`` enum whose
@@ -7,7 +8,9 @@ columns on a chosen device and back, without importing the JAX package:
 unsigned arrays (a decimal128 column's ``lo``) cross as the signed tensors of
 the same bits.  Both packages name their column fields alike (``data``;
 ``hi``/``lo``; ``chars``/``offsets``; ``offsets``/``child``; ``children``),
-which is what :func:`port_column` reads.
+which is what :func:`port_column` reads.  A bloom filter crosses as its
+``longs`` (uint64 words in the JAX package, their int64 bits in the port) and
+its two sizes.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from spark_rapids_jni_tpu_torch.columnar.column import (
     strings_from_arrays,
 )
 from spark_rapids_jni_tpu_torch.columnar.dtypes import DType, Kind
+from spark_rapids_jni_tpu_torch.ops.bloom_filter import BloomFilter
 
 _SIGNED = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32,
            np.dtype(np.uint64): np.int64}
@@ -98,3 +102,16 @@ def column_to_numpy(col) -> Tuple:
     if col.dtype.kind == Kind.UINT64:
         data = data.view(np.uint64)
     return data, validity
+
+
+def port_bloom_filter(jax_filter, device: _device.DeviceLike = None) -> BloomFilter:
+    """The port's BloomFilter holding the same words as the JAX package's
+    ``jax_filter``, on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    return BloomFilter(tensor_from_numpy(np.asarray(jax_filter.longs), device),
+                       int(jax_filter.num_hashes), int(jax_filter.num_longs))
+
+
+def bloom_filter_to_numpy(bloom_filter: BloomFilter) -> np.ndarray:
+    """A port filter's words as the JAX package holds them: numpy uint64."""
+    return bloom_filter.longs.cpu().numpy().view(np.uint64)

@@ -6,6 +6,29 @@ from spark_rapids_jni_tpu_torch.ops.hashing import (
     xxhash64,
     xxhash64_raw_int64,
 )
+from spark_rapids_jni_tpu_torch.ops.bloom_filter import (
+    BloomFilter,
+    bloom_filter_create,
+    bloom_filter_deserialize,
+    bloom_filter_merge,
+    bloom_filter_probe,
+    bloom_filter_put,
+    bloom_filter_serialize,
+)
+from spark_rapids_jni_tpu_torch.ops.decimal128 import (
+    multiply128,
+    divide128,
+    integer_divide128,
+    remainder128,
+    add128,
+    subtract128,
+)
+from spark_rapids_jni_tpu_torch.ops.row_conversion import (
+    convert_from_rows,
+    convert_from_rows_fixed_width_optimized,
+    convert_to_rows,
+    convert_to_rows_fixed_width_optimized,
+)
 
 __all__ = [
     "DEFAULT_XXHASH64_SEED",
@@ -14,4 +37,21 @@ __all__ = [
     "partition_mix32",
     "xxhash64",
     "xxhash64_raw_int64",
+    "BloomFilter",
+    "bloom_filter_create",
+    "bloom_filter_deserialize",
+    "bloom_filter_merge",
+    "bloom_filter_probe",
+    "bloom_filter_put",
+    "bloom_filter_serialize",
+    "multiply128",
+    "divide128",
+    "integer_divide128",
+    "remainder128",
+    "add128",
+    "subtract128",
+    "convert_from_rows",
+    "convert_from_rows_fixed_width_optimized",
+    "convert_to_rows",
+    "convert_to_rows_fixed_width_optimized",
 ]

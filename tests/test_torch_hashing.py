@@ -338,6 +338,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spark_rapids_jni_tpu_torch.mem.exceptions, spark_rapids_jni_tpu_torch.mem.arbiter\n"
         "import spark_rapids_jni_tpu_torch.mem.governor, spark_rapids_jni_tpu_torch.mem.spill\n"
         "import spark_rapids_jni_tpu_torch.mem.montecarlo\n"
+        "import spark_rapids_jni_tpu_torch.utils, spark_rapids_jni_tpu_torch.utils.int128\n"
+        "import spark_rapids_jni_tpu_torch.utils.int256, spark_rapids_jni_tpu_torch.utils.bitmask\n"
+        "import spark_rapids_jni_tpu_torch.utils.floatbits, spark_rapids_jni_tpu_torch.obs.phases\n"
+        "import spark_rapids_jni_tpu_torch.ops.decimal128\n"
+        "import spark_rapids_jni_tpu_torch.ops.bloom_filter\n"
+        "import spark_rapids_jni_tpu_torch.ops.row_conversion\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_mesh_ranks  # what spawned gloo ranks import\n"
         "import chip_smoke\n"
