@@ -123,9 +123,25 @@ port package beside it.  Otherwise it:
    rows, also in batches of at most 2**26 B; holds the rows against the
    numpy host arm on the CPU for the whole tables and the oracle arm on the
    card, and every read-back column against its input, and prints a
-   ``rows`` line (times, phases, bytes bound, peak memory); then the card's
-   name and power limit, the ``kernels`` line (all seven kernels, their
-   launches over the eight paths) and, last, the ``ok`` line.
+   ``rows`` line (times, phases, bytes bound, peak memory);
+15. drives the CastStrings path with the counters at 0 again (no kernel may
+   launch), at the size of a plugin batch: ``float_to_string`` over 2**24
+   FLOAT64 rows (seed 53: specials, 72% wide magnitudes, 20% prices, 8%
+   integers, 5% nulls) and the same values as FLOAT32, and its monolithic
+   oracle; ``string_to_float`` of those strings to FLOAT64 and FLOAT32 and
+   of a 2**20-row adversarial corpus; ``string_to_integer`` to INT64 and
+   INT32 over 2**24 integer strings; ``string_to_decimal`` to DECIMAL(38,2)
+   and DECIMAL(7,2) over 2**22 price strings; ``decimal_to_string`` over
+   2**24 DECIMAL(38,2) and DECIMAL(18,2) rows; ``format_float`` with 2
+   digits over 2**22 FLOAT64 and FLOAT32 rows; ``to_integers_with_base`` and
+   ``from_integers_with_base`` at base 16 and 10 over 2**22 rows; holds the
+   lane arms against the oracle and the numpy twin on whole outputs, every
+   call against the CPU run on a strided 2**20-row sample, ANSI mode's
+   error row and the gtest vectors on the card, and prints a ``casts`` line
+   (per call: time, phases, profiled kernels, peak memory, bytes bound;
+   the round-trip share); then the card's name and power limit, the
+   ``kernels`` line (all seven kernels, their launches over the nine paths)
+   and, last, the ``ok`` line.
 
 Every check that fails raises, and the script then exits non-zero.
 """
@@ -2179,7 +2195,7 @@ N_DEC = 1 << 24  # rows of multiply128's columns (2 x 256 MiB)
 N_DEC_DIV = 1 << 22  # rows of the divide, remainder and add/subtract calls
 N_DEC_BRANCH = 1 << 20  # rows of the calls that reach the remaining branches
 DEC_SAMPLE = 1 << 16  # rows of each call held against the CPU run (strided)
-DEC_REPS, DEC_WARMUP = 5, 1
+DEC_REPS, DEC_WARMUP = 3, 0  # the path's own call warms each one up
 
 
 def _dec_specials():
@@ -2536,6 +2552,8 @@ def _require_columns_equal(what, got, want):
         if g.dtype != w.dtype:
             raise AssertionError(f"{what} column {c}: {g.dtype} != {w.dtype}")
         for i, (gt, wt) in enumerate(zip(_column_tensors(g), _column_tensors(w))):
+            if gt.dtype == torch.float32:  # FLOAT32 data: compare bits (NaN != NaN)
+                gt, wt = gt.view(torch.int32), wt.view(torch.int32)
             _require_equal(f"{what} column {c} field {i}", gt, wt)
 
 
@@ -2674,6 +2692,469 @@ def jcudf_rows(rates, device="cuda"):
     return counts
 
 
+# ---- the CastStrings path (BASELINE config 2) --------------------------------
+
+N_CAST = 1 << 24  # rows of the FLOAT64 column (128 MiB) and of the integer strings
+N_CAST_MID = 1 << 22  # rows of the decimal, format_float and base-cast calls
+N_CAST_CORPUS = 1 << 20  # rows of the adversarial parse corpus and the ANSI column
+CAST_SAMPLE = 1 << 20  # rows of each call held against the CPU run (strided)
+CAST_REPS, CAST_WARMUP = 5, 1
+
+
+def _digits(mag, width):
+    """[n, width] ASCII digits of non-negative int64 ``mag`` (a tensor),
+    right-aligned, and each value's digit count."""
+    cols = []
+    v = mag
+    for _ in range(width):
+        cols.append((v % 10 + ord("0")).to(torch.uint8))
+        v = v // 10
+    nd = torch.ones_like(mag)
+    for k in range(1, 19):
+        nd += (mag >= 10 ** k).to(torch.int64)
+    return torch.stack(cols[::-1], dim=1), nd
+
+
+def _concat_fields(parts, valid):
+    """A StringColumn whose row i is the concatenation, over ``parts``, of
+    the last ``ln[i]`` bytes of ``field[i]`` (``(field [n, w] uint8, ln [n])``
+    pairs on one device)."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    n, dev = parts[0][0].shape[0], parts[0][0].device
+    width = sum(f.shape[1] for f, _ in parts)
+    out = torch.zeros((n, width), dtype=torch.uint8, device=dev)
+    pos = torch.zeros(n, dtype=torch.int64, device=dev)
+    col = torch.arange(width, device=dev)[None, :]
+    for field, ln in parts:
+        w = field.shape[1]
+        ln = torch.as_tensor(ln, device=dev).to(torch.int64).expand(n)
+        take = (col >= pos[:, None]) & (col < (pos + ln)[:, None])
+        src = torch.clamp(col - pos[:, None] + (w - ln)[:, None], 0, w - 1)
+        out = torch.where(take, torch.gather(field, 1, src), out)
+        pos = pos + ln
+    return c.strings_from_padded(out, pos, valid)
+
+
+def _const_field(n, text, device):
+    return torch.tensor(list(text.encode()), dtype=torch.uint8,
+                        device=device).expand(n, len(text))
+
+
+def _bools(rng, n, p, device):
+    return torch.from_numpy(rng.random(n) < p).to(device)
+
+
+def _integer_strings(rng, n, device):
+    """``n`` Spark integer strings: 1-18 digits (the count uniform), 10% '-'
+    and 5% '+' signs, 5% wrapped in whitespace, 1% of 20 digits (past
+    INT64), 1% ending in a junk letter, 5% nulls."""
+    mag = torch.from_numpy((rng.random(n) * 10.0 ** rng.integers(1, 19, n))
+                           .astype(np.int64)).to(device)
+    digits, nd = _digits(mag, 20)
+    over = _bools(rng, n, 0.01, device)
+    nd = torch.where(over, 20, nd)
+    digits[:, 0] = torch.where(over, ord("9"), digits[:, 0])
+    junk = _bools(rng, n, 0.01, device)
+    digits[:, -1] = torch.where(junk, ord("z"), digits[:, -1])
+    sign = torch.where(_bools(rng, n, 2 / 3, device), ord("-"), ord("+")).to(torch.uint8)
+    ws = _bools(rng, n, 0.05, device).to(torch.int64)
+    pad = _const_field(n, " \t", device)
+    return _concat_fields([(pad, 2 * ws), (sign[:, None], _bools(rng, n, 0.15, device)),
+                           (digits, nd), (pad, ws)], _bools(rng, n, 0.95, device))
+
+
+def _price_strings(rng, n, device):
+    """``n`` price strings "d+.dd" under 100000, 2% as "d.ddddE+k", 5%
+    nulls."""
+    cents = torch.from_numpy(rng.integers(0, 10**7, n)).to(device)
+    sci = _bools(rng, n, 0.02, device)
+    ip, ipn = _digits(cents // 100, 5)
+    fp, _ = _digits(cents % 100, 2)
+    mant, _ = _digits(torch.from_numpy(rng.integers(10000, 100000, n)).to(device), 5)
+    exp = (torch.from_numpy(rng.integers(0, 5, n)).to(device) + ord("0")).to(torch.uint8)
+    plain = ~sci
+    return _concat_fields([(ip, torch.where(plain, ipn, 0)), (mant[:, :1], sci),
+                           (_const_field(n, ".", device), 1),
+                           (fp, torch.where(plain, 2, 0)), (mant[:, 1:], 4 * sci),
+                           (_const_field(n, "E+", device), 2 * sci), (exp[:, None], sci)],
+                          _bools(rng, n, 0.95, device))
+
+
+def _hex_strings(rng, n, device):
+    """``n`` conv() inputs in base 16: 1-16 hex digits of either case, 10%
+    '-', 5% leading whitespace, 2% a junk tail, 2% a lone blank."""
+    nib = torch.from_numpy(rng.integers(0, 16, (n, 16))).to(device)
+    upper = _bools(rng, n, 0.5, device)[:, None]
+    digits = torch.where(nib < 10, nib + ord("0"),
+                         torch.where(upper, nib + ord("A") - 10, nib + ord("a") - 10))
+    nd = torch.from_numpy(rng.integers(1, 17, n)).to(device)
+    blank = _bools(rng, n, 0.02, device)
+    return _concat_fields([(_const_field(n, "  ", device), 2 * _bools(rng, n, 0.05, device)),
+                           (_const_field(n, "-", device), _bools(rng, n, 0.1, device)),
+                           (digits.to(torch.uint8), torch.where(blank, 0, nd)),
+                           (_const_field(n, "zzz", device), 3 * _bools(rng, n, 0.02, device)),
+                           (_const_field(n, " ", device), blank)], None)
+
+
+# adversarial parse strings in the style of tests/test_straggler_fastpaths.py
+_PARSE_EDGES = [
+    "0", "-0", "0.0", "-0.0", ".5", "5.", "+3", "1e291", "-1e291", "1e-291", "1e308",
+    "1e309", "1e-310", "4.9e-324", "1e-400", "1e400", "17976931348623157e292",
+    "9999999999999999999", "18446744073709551609", "18446744073709551610",
+    "184467440737095516091234", "0.01234567890123456789",
+    "0." + "0" * 30 + "123456789012345678901234", "nan", "NaN", "-nan", "inf", "-inf",
+    "Infinity", "-INFINITY", "+inf", " inf", "\riNf", "infinity7", "infx", "7f", "8d", "0f",
+    "0d", "0 ", "1.3e+7f", "46037e\t", "2F.", "", ".", "e", "E15", "A", "null", "--1", "1..2",
+    "1e", "1e+", "1.5e3e4", "0x1p3", " " * 36 + "7d", "1.1\x00", "1.2\x14", "1.6\x9f", "1.7!",
+]
+
+
+def _parse_corpus(n, device):
+    """``n`` rows drawn (numpy seed 59) from 4096 adversarial strings:
+    whitespace, signs, inf / infinity / nan in any case, trailing f/d,
+    exponents, more than 20 digits, junk; 5% nulls."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    r = np.random.RandomState(59)
+    base = list(_PARSE_EDGES)
+    while len(base) < 4096:
+        nd = r.randint(1, 26)
+        digs = "".join(r.choice(list("0123456789"), nd))
+        pt = r.randint(0, nd + 1)
+        s = digs[:pt] + "." + digs[pt:] if r.rand() < 0.6 else digs
+        if r.rand() < 0.6:
+            s += r.choice(["e", "E"]) + str(r.choice(["", "+", "-"])) + str(r.randint(0, 330))
+        if r.rand() < 0.5:
+            s = "-" + s
+        if r.rand() < 0.2:
+            s = r.choice([" ", "\t", "\n"]) + s + r.choice(["f", "D", " ", ""])
+        if r.rand() < 0.05:
+            s = "".join(r.choice(list("0123456789.eE+-fdx \t\rZ"), 10))
+        base.append(s)
+    table = c.strings_column(base, device).padded()
+    pick = np.concatenate([np.arange(len(base)), r.randint(0, len(base), max(n - len(base), 0))])
+    pick = torch.from_numpy(pick[:n]).to(device)
+    return c.strings_from_padded(table[0][pick], table[1][pick],
+                                 torch.from_numpy(r.rand(n) >= 0.05).to(device))
+
+
+def _cast_floats(n, device):
+    """FLOAT64 values (numpy seed 53): the specials first (NaN, +-Inf, +-0,
+    the least subnormal, the largest double), then 72% rand x exp(U(-30,
+    30)) (full Ryu), 20% cent-rounded prices in [0, 1000), 8% integers in
+    [1, 10**7) (the simple class), 30% negative; 5% nulls.  Returns the
+    FLOAT64 column and the FLOAT32 column of the same values."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    rng = np.random.default_rng(53)
+    kind = rng.random(n)
+    vals = np.where(kind < 0.72, rng.random(n) * np.exp(rng.uniform(-30, 30, n)),
+                    np.where(kind < 0.92, np.round(rng.random(n) * 1000, 2),
+                             rng.integers(1, 10**7, n).astype(np.float64)))
+    vals *= np.where(rng.random(n) < 0.3, -1.0, 1.0)
+    vals[:7] = [np.nan, np.inf, -np.inf, 0.0, -0.0, 5e-324, 1.7976931348623157e308]
+    valid = torch.from_numpy(rng.random(n) >= 0.05).to(device)
+    valid[:7] = True
+    with np.errstate(over="ignore"):
+        f32 = vals.astype(np.float32)
+    return (c.Column(torch.from_numpy(vals.view(np.int64)).to(device), valid, c.FLOAT64),
+            c.Column(torch.from_numpy(f32).to(device), valid.clone(), c.FLOAT32))
+
+
+def _head(col, n):
+    """The first ``n`` rows of a column (views; a string column keeps only
+    its rows' chars)."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    valid = None if col.validity is None else col.validity[:n]
+    if hasattr(col, "chars"):
+        offs = col.offsets[:n + 1]
+        return c.StringColumn(col.chars[:int(offs[-1])], offs, valid)
+    return c.Column(col.data[:n], valid, col.dtype)
+
+
+def casts_batch(device):
+    """The casts phase's inputs, drawn with numpy from fixed seeds (strings
+    laid out by plain torch on ``device``), and the FLOAT64 column's strings,
+    made by float_to_string."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+    from spark_rapids_jni_tpu_torch.ops import float_to_string
+
+    f64, f32 = _cast_floats(N_CAST, device)
+    rng = np.random.default_rng(61)
+    ints = _integer_strings(rng, N_CAST, device)
+    i64 = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, N_CAST_MID,
+                       endpoint=True)
+    i64[:3] = [np.iinfo(np.int64).min, -1, 0]
+    d64 = (rng.random(N_CAST) * 10.0 ** rng.integers(1, 19, N_CAST)).astype(np.int64)
+    d64 *= np.where(rng.random(N_CAST) < 0.5, -1, 1)
+    d64[:4] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max, 0, -1]
+    ansi = float_to_string(c.Column(f64.data[:N_CAST_CORPUS], None, c.FLOAT64))
+    bad = int(rng.integers(0, N_CAST_CORPUS))
+    ansi.chars[ansi.offsets[bad]] = ord("x")  # the one row that cannot parse
+    # format_float sizes its grid by the largest exponent: its rows keep the
+    # specials but not the least subnormal and the largest double
+    keep = torch.cat([torch.arange(5), torch.arange(7, N_CAST_MID + 2)]).to(device)
+    return {
+        "f64": f64, "f32": f32,
+        "f64_mid": c.Column(f64.data[keep], f64.validity[keep], c.FLOAT64),
+        "f32_mid": c.Column(f32.data[keep], f32.validity[keep], c.FLOAT32),
+        "f64_strings": float_to_string(f64),
+        "corpus": _parse_corpus(N_CAST_CORPUS, device), "ints": ints,
+        "ints_mid": _head(ints, N_CAST_MID), "prices": _price_strings(rng, N_CAST_MID, device),
+        "hex": _hex_strings(rng, N_CAST_MID, device),
+        "i64": c.Column(torch.from_numpy(i64).to(device), None, c.INT64),
+        "dec128": _decimals(np.random.RandomState(67), N_CAST, device),
+        "dec64": c.Column(torch.from_numpy(d64).to(device), None, c.decimal(18, 2)),
+        "ansi": ansi, "ansi_row": bad}
+
+
+def _cast_calls(b):
+    """name -> (function of one column through the public CastStrings API,
+    the batch's input column for it, the config flags it runs under)."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+    from spark_rapids_jni_tpu_torch import ops
+
+    def to_float(dt):
+        return lambda col: ops.string_to_float(col, False, dt)
+
+    return {
+        "float_to_string[f64]": (ops.float_to_string, b["f64"], {}),
+        "float_to_string[f32]": (ops.float_to_string, b["f32"], {}),
+        "float_to_string[f64,oracle]": (ops.float_to_string, b["f64"],
+                                        {"float_bucketed": False}),
+        "string_to_float[f64]": (to_float(c.FLOAT64), b["f64_strings"], {}),
+        "string_to_float[f32]": (to_float(c.FLOAT32), b["f64_strings"], {}),
+        "string_to_float[corpus]": (to_float(c.FLOAT64), b["corpus"], {}),
+        "string_to_integer[int64]": (lambda col: ops.string_to_integer(col, c.INT64),
+                                     b["ints"], {}),
+        "string_to_integer[int32]": (lambda col: ops.string_to_integer(col, c.INT32),
+                                     b["ints"], {}),
+        "string_to_decimal[38,2]": (lambda col: ops.string_to_decimal(col, 38, 2),
+                                    b["prices"], {}),
+        "string_to_decimal[7,2]": (lambda col: ops.string_to_decimal(col, 7, 2),
+                                   b["prices"], {}),
+        "decimal_to_string[38,2]": (ops.decimal_to_string, b["dec128"], {}),
+        "decimal_to_string[18,2]": (ops.decimal_to_string, b["dec64"], {}),
+        "format_float[f64,2]": (lambda col: ops.format_float(col, 2), b["f64_mid"], {}),
+        "format_float[f32,2]": (lambda col: ops.format_float(col, 2), b["f32_mid"], {}),
+        "to_integers_with_base[16]": (lambda col: ops.to_integers_with_base(col, 16),
+                                      b["hex"], {}),
+        "to_integers_with_base[10]": (lambda col: ops.to_integers_with_base(col, 10),
+                                      b["ints_mid"], {}),
+        "from_integers_with_base[16]": (lambda col: ops.from_integers_with_base(col, 16),
+                                        b["i64"], {}),
+        "from_integers_with_base[10]": (lambda col: ops.from_integers_with_base(col, 10),
+                                        b["i64"], {}),
+    }
+
+
+def _cast_run(spec, col=None):
+    """One call of ``spec`` on its own input, or on ``col``."""
+    from spark_rapids_jni_tpu_torch import config
+
+    fn, inp, flags = spec
+    with config.override(**flags):
+        return fn(inp if col is None else col)
+
+
+def casts_path(b):
+    """Every cast call once on the card with the counters at 0: plain torch,
+    no kernel of the hash wrappers may launch."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    calls = _cast_calls(b)
+    torch.cuda.synchronize()
+    hash_cuda.reset_launches()
+    outs = {name: _cast_run(spec) for name, spec in calls.items()}
+    torch.cuda.synchronize()
+    counts = dict(hash_cuda.launches)
+    print(json.dumps({"casts_launches": counts}))
+    if any(counts.values()):
+        raise AssertionError(f"the casts path launched hash kernels: {counts}")
+    return counts, outs
+
+
+def _take(col, idx):
+    """Rows ``idx`` of a column, copied to the CPU."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    valid = None if col.validity is None else col.validity[idx].cpu()
+    if hasattr(col, "chars"):
+        starts = col.offsets[idx].to(torch.int64)
+        lens = col.offsets[idx + 1].to(torch.int64) - starts
+        offs = torch.zeros(idx.numel() + 1, dtype=torch.int64, device=idx.device)
+        offs[1:] = torch.cumsum(lens, 0)
+        row = torch.repeat_interleave(torch.arange(idx.numel(), device=idx.device), lens)
+        pos = torch.arange(row.numel(), device=idx.device)
+        chars = col.chars[starts[row] + pos - offs[:-1][row]]
+        return c.StringColumn(chars.cpu(), offs.to(torch.int32).cpu(), valid)
+    if hasattr(col, "hi"):
+        return c.Decimal128Column(col.hi[idx].cpu(), col.lo[idx].cpu(), valid, col.dtype)
+    return c.Column(col.data[idx].cpu(), valid, col.dtype)
+
+
+# the gtest vectors of tests/test_float_to_string.py, tests/test_decimal_format.py
+# and tests/test_cast_string_to_float.py: (call, input, expected to_list())
+CAST_VECTORS = [
+    ("float_to_string", "f32", [100.0, 654321.25, -12761.125, 0.0, 5.0, -4.0, float("nan"),
+                                123456789012.34, -0.0],
+     ["100.0", "654321.25", "-12761.125", "0.0", "5.0", "-4.0", "NaN", "1.2345679E11",
+      "-0.0"]),
+    ("float_to_string", "f64", [100.0, 654321.25, -12761.125, 1.123456789123456789,
+                                0.000000000000000000123456789123456789, 0.0, 5.0, -4.0,
+                                float("nan"), 839542223232.794248339, -0.0, float("inf"),
+                                1e7, 9999999.0, 1e-3, 9.0e-4, 5e-324,
+                                1.7976931348623157e308],
+     ["100.0", "654321.25", "-12761.125", "1.1234567891234568", "1.234567891234568E-19", "0.0",
+      "5.0", "-4.0", "NaN", "8.395422232327942E11", "-0.0", "Infinity", "1.0E7", "9999999.0",
+      "0.001", "9.0E-4", "5.0E-324", "1.7976931348623157E308"]),
+    ("format_float", "f32", [100.0, 654321.25, -12761.125, 0.0, 5.0, -4.0, float("nan"),
+                             123456789012.34, -0.0],
+     ["100.00000", "654,321.25000", "-12,761.12500", "0.00000", "5.00000", "-4.00000", "�",
+      "123,456,790,000.00000", "-0.00000"]),
+    ("format_float", "f64", [100.0, 654321.25, -12761.125, 1.123456789123456789,
+                             0.000000000000000000123456789123456789, 0.0, 5.0, -4.0,
+                             float("nan"), 839542223232.794248339, 3232.794248339,
+                             11234000000.0, -0.0, float("inf"), float("-inf")],
+     ["100.00000", "654,321.25000", "-12,761.12500", "1.12346", "0.00000", "0.00000",
+      "5.00000", "-4.00000", "�", "839,542,223,232.79420", "3,232.79425",
+      "11,234,000,000.00000", "-0.00000", "∞", "-∞"]),
+    ("decimal_to_string", (18, 7), [0, 100000000], ["0E-7", "10.0000000"]),
+    ("decimal_to_string", (9, -1), [21, -30, 5], ["2.1E+2", "-3.0E+2", "5E+1"]),
+    ("decimal_to_string", (38, 10), [12345678901234567890123456789012345678, -1, 0, None,
+                                     -(10**37)],
+     ["1234567890123456789012345678.9012345678", "-1E-10", "0E-10", None,
+      "-1000000000000000000000000000.0000000000"]),
+    ("string_to_float", "f64", ["7f", "\riNf", "1.3e5ef", "1.3e+7f", "9\n", "46037e\t", "8d",
+                                "0\n", ".\r", "2F.", " " * 36 + "7d",
+                                " " * 28 + "98392.5e-1f", ".", "e", "-2.21363921575273728E17",
+                                "0", "-0000000000000000000E0",
+                                "0000000000000000000000000000000017", "18446744073709551609",
+                                "-1.8946e-10", "0000.123", "-nan", "1e-310", "1e-400"],
+     [7.0, float("inf"), None, 13000000.0, 9.0, None, 8.0, 0.0, None, None, 7.0, 9839.25, None,
+      None, -2.21363921575273728e17, 0.0, -0.0, 17.0, 18446744073709551609.0, -1.8946e-10,
+      0.123, None, 1e-310, 0.0]),
+]
+
+
+def check_cast_vectors(device):
+    """The gtest vectors give their expected strings and values on ``device``."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+    from spark_rapids_jni_tpu_torch import ops
+
+    for i, (op, kind, vals, expected) in enumerate(CAST_VECTORS):
+        if op == "decimal_to_string":
+            p, s = kind
+            col = (c.decimal128_column(vals, p, s, device) if p > 18
+                   else c.column(vals, c.decimal(p, s), device))
+            got = ops.decimal_to_string(col).to_list()
+        elif op == "string_to_float":
+            got = ops.string_to_float(c.strings_column(vals, device), False,
+                                      c.FLOAT64).to_list()
+        else:
+            col = c.column(vals, c.FLOAT32 if kind == "f32" else c.FLOAT64, device)
+            got = (ops.float_to_string(col) if op == "float_to_string"
+                   else ops.format_float(col, 5)).to_list()
+        if got != expected:
+            raise AssertionError(f"gtest vector {i} ({op}): {got} != {expected}")
+    return len(CAST_VECTORS)
+
+
+def check_casts(b, outs):
+    """The checks of the casts phase; returns what they measured.
+
+    - the arms against each other on whole outputs on the card:
+      float_to_string's bucketed lane arm against its monolithic oracle (the
+      path's own calls), string_to_float's lane arm against the pinned numpy
+      twin to FLOAT64 (FLOAT32 meets the twin in the CPU sample);
+    - every call against the port's CPU run on a strided CAST_SAMPLE-row
+      sample of its input (the functions are row-wise);
+    - ANSI mode names the one bad row; the gtest vectors on the card;
+    - the round-trip share string_to_float(float_to_string(x)) == x over the
+      finite rows (printed, not a gate: the reference's parse is not
+      correctly rounded at extreme exponents).
+    """
+    from spark_rapids_jni_tpu_torch import columnar as c
+    from spark_rapids_jni_tpu_torch import config, ops
+
+    _require_columns_equal("float_to_string lane arm vs oracle",
+                           [outs["float_to_string[f64]"]], [outs["float_to_string[f64,oracle]"]])
+    t0 = time.perf_counter()
+    with config.override(cast_device_parse=False):
+        twin = ops.string_to_float(b["f64_strings"], False, c.FLOAT64)
+    _require_columns_equal("string_to_float[f64] lane arm vs numpy twin",
+                           [outs["string_to_float[f64]"]], [twin])
+    twin_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for name, spec in _cast_calls(b).items():
+        col = spec[1]
+        idx = torch.arange(0, col.size, max(col.size // CAST_SAMPLE, 1), device=col.device)
+        _require_columns_equal(f"{name} vs the CPU run", [_take(outs[name], idx)],
+                               [_cast_run(spec, _take(col, idx))])
+    cpu_s = time.perf_counter() - t0
+
+    try:
+        ops.string_to_float(b["ansi"], True, c.FLOAT64)
+    except ops.CastException as e:
+        if e.row_with_error != b["ansi_row"]:
+            raise AssertionError(f"ANSI error row {e.row_with_error} != {b['ansi_row']}")
+    else:
+        raise AssertionError("ANSI string_to_float raised no CastException")
+
+    f64 = b["f64"]
+    finite = torch.isfinite(f64.data.view(torch.float64)) & f64.is_valid()
+    back = outs["string_to_float[f64]"].data
+    return {"twin_arm_s": twin_s, "cpu_sample_s": cpu_s, "sample_rows": CAST_SAMPLE,
+            "ansi_error_row": b["ansi_row"],
+            "round_trip_exact_share": float((back[finite] == f64.data[finite]).double().mean()),
+            "gtest_vectors": check_cast_vectors(f64.device)}
+
+
+def time_casts(b, outs, rates):
+    """Each call's time (CUDA events, median of CAST_REPS after CAST_WARMUP)
+    and peak memory, the kernels the profiler sees in one more call, the
+    PHASES of one more (float_to_string and string_to_float), and its bytes
+    bound: its input read once and its output written once."""
+    import importlib
+
+    phases = {"float_to_string": "float_to_string", "string_to_float": "cast_string_to_float"}
+    lines = {}
+    for name, spec in _cast_calls(b).items():
+        line = _timed(lambda spec=spec: _cast_run(spec), CAST_REPS, CAST_WARMUP)
+        nbytes = _table_bytes([spec[1], outs[name]])
+        line.update({"n": spec[1].size, "bytes": nbytes, **_bound(nbytes, 0, rates),
+                     "profiled_kernels": _profiled_kernels(lambda spec=spec: _cast_run(spec))})
+        module = phases.get(name.split("[")[0])
+        if module is not None:  # the package's float_to_string is the function
+            timer = importlib.import_module(f"spark_rapids_jni_tpu_torch.ops.{module}").PHASES
+            torch.cuda.synchronize()
+            timer.reset()
+            _cast_run(spec)
+            torch.cuda.synchronize()
+            line["phases_s"] = timer.snapshot()
+        lines[name] = line
+    return lines
+
+
+def casts(rates, device="cuda"):
+    """The casts phase: the path with the counters at 0, the checks, the
+    times; prints the ``casts`` line and returns the path's launch counts."""
+    t0 = time.perf_counter()
+    b = casts_batch(device)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts, outs = casts_path(b)
+    checks = check_casts(b, outs)
+    print(json.dumps({"casts": {
+        "n": N_CAST, "n_mid": N_CAST_MID, "n_corpus": N_CAST_CORPUS,
+        "f64_strings_chars": int(b["f64_strings"].offsets[-1]),
+        "calls": time_casts(b, outs, rates), "checks": checks, "batch_gen_s": gen_s}}))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2727,8 +3208,8 @@ def main() -> int:
         dist.destroy_process_group()
         tmp.cleanup()
     path_counts = [counts, col_counts, dist_counts, plan_counts, gov_counts, bloom(),
-                   decimal(), jcudf_rows(rates)]
-    for row in rows:  # the main path is now all eight paths: their launches add up
+                   decimal(), jcudf_rows(rates), casts(rates)]
+    for row in rows:  # the main path is now all nine paths: their launches add up
         row["launches"] = sum(c[row["name"]] for c in path_counts)
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))

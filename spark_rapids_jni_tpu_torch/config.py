@@ -192,11 +192,11 @@ register("json_overlap_bytes", 64 << 20,
          "group. 1 = serial per-bucket syncs.",
          env="SRT_JSON_OVERLAP_BYTES")
 register("float_device_render", "auto",
-         "Backend arm of ops/float_to_string.py: True = device Ryu "
-         "(the Spark-parity oracle machinery), False = the # twin: "
-         "numpy host renderer, 'auto' (default) picks by backend — "
-         "device rendering on an accelerator, the compacted host twin "
-         "on XLA:CPU (the json_device_render pattern, round 20).",
+         "Arm of ops/float_to_string.py: True = the torch lane Ryu on the "
+         "column's device, False = the numpy host renderer (the twin), "
+         "'auto' (default) picks by the column's device: the lane arm for "
+         "CUDA tensors, the twin for CPU ones.  No arm falls back to the "
+         "other; the result is on the column's device.",
          env="SRT_FLOAT_DEVICE_RENDER", parser=_parse_device_render)
 register("float_bucketed", True,
          "Value-class bucketing in float_to_string (round 20): split "
@@ -207,11 +207,12 @@ register("float_bucketed", True,
          "Off = the monolithic whole-column oracle path.",
          env="SRT_FLOAT_BUCKETED")
 register("cast_device_parse", "auto",
-         "Backend arm of ops/cast_string_to_float.py: True = device "
-         "lane scan + softfloat assemble (the Spark-parity oracle), "
-         "False = the twin-pinned numpy host scan + the hardware-float "
-         "_assemble oracle promoted to fast path, 'auto' (default) "
-         "picks by backend like json_device_render (round 20).",
+         "Arm of ops/cast_string_to_float.py: True = the torch lane scan "
+         "+ softfloat assembly on the column's device, False = the numpy "
+         "host scan + hardware-binary64 assembly (the twin), 'auto' "
+         "(default) picks by the column's device: the lane arm for CUDA "
+         "tensors, the twin for CPU ones.  No arm falls back to the "
+         "other; the result is on the column's device.",
          env="SRT_CAST_DEVICE_PARSE", parser=_parse_device_render)
 register("rows_device_path", "auto",
          "Arm of ops/row_conversion.py's cached-permutation fast path: "

@@ -9,7 +9,7 @@ and every operation is elementwise over the leading (row) axes.  The limbs are
 int64 tensors holding values in [0, 2**32), so limb compares are plain
 compares and a limb product plus two limbs fits in 64 bits; where such a sum
 reaches 2**63 it wraps negative in int64, so its carry is taken with a logical
-shift (``int128._ushr``), never a bare ``>>``.  128-bit remainders and
+shift (``u64.shr``), never a bare ``>>``.  128-bit remainders and
 divisors are (hi int64, lo int64-bits) pairs as in ``int128``.
 
 Sign convention: two's complement over the full 256 bits (limb 7's top bit).
@@ -24,7 +24,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from spark_rapids_jni_tpu_torch.utils.int128 import _ult, _ushr
+from spark_rapids_jni_tpu_torch.utils.u64 import shr, ult
 
 NLIMBS = 8
 _M32 = 0xFFFFFFFF
@@ -53,7 +53,7 @@ def _pow10_table(device: torch.device) -> torch.Tensor:
 def from_i128(hi, lo):
     """Sign-extend (hi int64, lo int64-bits) into limbs[..., 8]."""
     sign = torch.where(hi < 0, _M32, 0)
-    return torch.stack([lo & _M32, _ushr(lo, 32), hi & _M32, _ushr(hi, 32),
+    return torch.stack([lo & _M32, shr(lo, 32), hi & _M32, shr(hi, 32),
                         sign, sign, sign, sign], dim=-1)
 
 
@@ -123,7 +123,7 @@ def multiply(a, b):
             r_idx = a_idx + b_idx
             m = au[a_idx] * bu[b_idx] + r[r_idx] + carry
             r[r_idx] = m & _M32
-            carry = _ushr(m, 32)
+            carry = shr(m, 32)
     return torch.stack(r, dim=-1)
 
 
@@ -186,7 +186,7 @@ def is_greater_than_decimal_38(a):
 
 def _u128_lt(ahi, alo, bhi, blo):
     """Unsigned 128-bit (ahi, alo) < (bhi, blo), every word u64 bits."""
-    return _ult(ahi, bhi) | ((ahi == bhi) & _ult(alo, blo))
+    return ult(ahi, bhi) | ((ahi == bhi) & ult(alo, blo))
 
 
 def divide_unsigned(n, d_hi, d_lo):
@@ -207,11 +207,11 @@ def divide_unsigned(n, d_hi, d_lo):
         for i in range(32):
             bit_pos = 31 - i
             read = (nb >> bit_pos) & 1
-            r_hi = (r_hi << 1) | _ushr(r_lo, 63)
+            r_hi = (r_hi << 1) | shr(r_lo, 63)
             r_lo = (r_lo << 1) | read
             ge = ~_u128_lt(r_hi, r_lo, d_hi, d_lo)
             new_lo = r_lo - d_lo
-            borrow = _ult(r_lo, new_lo).to(torch.int64)
+            borrow = ult(r_lo, new_lo).to(torch.int64)
             new_hi = r_hi - d_hi - borrow
             r_hi = torch.where(ge, new_hi, r_hi)
             r_lo = torch.where(ge, new_lo, r_lo)
@@ -255,11 +255,11 @@ def round_from_remainder(q, r_hi, r_lo, n_neg, d_hi, d_lo):
     zero when |2r| >= |d|, with the doubled-remainder-overflow short circuit.
     The doubled remainder's high word shifts back arithmetically, its low
     word logically, as in the JAX package."""
-    dbl_hi = (r_hi << 1) | _ushr(r_lo, 63)
+    dbl_hi = (r_hi << 1) | shr(r_lo, 63)
     dbl_lo = r_lo << 1
     # did (r << 1) >> 1 lose information?
     back_hi = dbl_hi >> 1
-    back_lo = _ushr(dbl_lo, 1) | (dbl_hi << 63)
+    back_lo = shr(dbl_lo, 1) | (dbl_hi << 63)
     lost = (back_hi != r_hi) | (back_lo != r_lo)
     # |2r| and |d| as unsigned 128
     a2_hi, a2_lo = _abs_i128(dbl_hi, dbl_lo)

@@ -344,6 +344,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spark_rapids_jni_tpu_torch.ops.decimal128\n"
         "import spark_rapids_jni_tpu_torch.ops.bloom_filter\n"
         "import spark_rapids_jni_tpu_torch.ops.row_conversion\n"
+        "import spark_rapids_jni_tpu_torch.utils.u64, spark_rapids_jni_tpu_torch.utils.softfloat\n"
+        "import spark_rapids_jni_tpu_torch.utils.ryu_tables\n"
+        "import spark_rapids_jni_tpu_torch.ops.cast_string\n"
+        "import spark_rapids_jni_tpu_torch.ops.cast_string_to_float\n"
+        "import spark_rapids_jni_tpu_torch.ops.float_to_string\n"
+        "import spark_rapids_jni_tpu_torch.ops.format_float\n"
+        "import spark_rapids_jni_tpu_torch.ops.cast_decimal_to_string\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_mesh_ranks  # what spawned gloo ranks import\n"
         "import chip_smoke\n"
