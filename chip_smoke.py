@@ -135,13 +135,33 @@ port package beside it.  Otherwise it:
    2**24 DECIMAL(38,2) and DECIMAL(18,2) rows; ``format_float`` with 2
    digits over 2**22 FLOAT64 and FLOAT32 rows; ``to_integers_with_base`` and
    ``from_integers_with_base`` at base 16 and 10 over 2**22 rows; holds the
-   lane arms against the oracle and the numpy twin on whole outputs, every
-   call against the CPU run on a strided 2**20-row sample, ANSI mode's
+   lane arms against the oracle on whole outputs and the numpy twin on
+   2**22 rows, every call against the CPU run on a strided 2**19-row
+   sample, ANSI mode's
    error row and the gtest vectors on the card, and prints a ``casts`` line
    (per call: time, phases, profiled kernels, peak memory, bytes bound;
-   the round-trip share); then the card's name and power limit, the
-   ``kernels`` line (all seven kernels, their launches over the nine paths)
-   and, last, the ``ok`` line.
+   the round-trip share);
+16. drives the order tier with the counters at 0 again (no kernel may
+   launch: a range exchange places rows by rank, not by hash), at TPC-DS
+   SF10's sizes (28,800,991 store sales, 102,000 items, 500,000 customers,
+   10 categories, 20 income bands): ``run_range_plan_local`` of NDS q67 (a
+   rank per category, top 100) and q64 (framed running sums and max per
+   (category, brand) over 1,000 brands, band >= 10, top 100), of the global
+   ``topk_sales_plan(100)`` and of ``naive_sort_limit_plan(100)``; q67 and
+   both top-k plans over 4 map shards into 4 range partitions against
+   shared splitters; q67's reduce plan through ``run_governed_plan``; holds
+   every full-size output against a vectorized numpy oracle, the multi-shard
+   and governed runs against the local ones, the top-k against the naive
+   plan with fewer bytes on the wire, and every call at 2**20 rows against
+   the CPU run, bit for bit and in row order; runs the plans phase's q5 and
+   q3 locally through ``run_governed_plan`` with the ``plan_optimizer`` flag
+   off and on (equal answers, the rewrite events counted), and prints an
+   ``order`` line (per call: host-to-host seconds, peak memory, the steps
+   of those timed calls as the entry points' own phase timers read them --
+   the map emit, rank and sort, download, the reduce's upload and launch --
+   and the reduce executor on resident inputs); then the card's name and power limit, the ``kernels``
+   line (all seven kernels, their launches over the ten paths) and, last,
+   the ``ok`` line.
 
 Every check that fails raises, and the script then exits non-zero.
 """
@@ -2697,7 +2717,7 @@ def jcudf_rows(rates, device="cuda"):
 N_CAST = 1 << 24  # rows of the FLOAT64 column (128 MiB) and of the integer strings
 N_CAST_MID = 1 << 22  # rows of the decimal, format_float and base-cast calls
 N_CAST_CORPUS = 1 << 20  # rows of the adversarial parse corpus and the ANSI column
-CAST_SAMPLE = 1 << 20  # rows of each call held against the CPU run (strided)
+CAST_SAMPLE = 1 << 19  # rows of each call held against the CPU run (strided)
 CAST_REPS, CAST_WARMUP = 5, 1
 
 
@@ -3065,10 +3085,11 @@ def check_cast_vectors(device):
 def check_casts(b, outs):
     """The checks of the casts phase; returns what they measured.
 
-    - the arms against each other on whole outputs on the card:
-      float_to_string's bucketed lane arm against its monolithic oracle (the
-      path's own calls), string_to_float's lane arm against the pinned numpy
-      twin to FLOAT64 (FLOAT32 meets the twin in the CPU sample);
+    - the arms against each other on the card: float_to_string's bucketed
+      lane arm against its monolithic oracle on whole outputs (the path's
+      own calls), string_to_float's lane arm against the pinned numpy twin
+      to FLOAT64 on the first N_CAST_MID rows (FLOAT32 meets the twin in the
+      CPU sample);
     - every call against the port's CPU run on a strided CAST_SAMPLE-row
       sample of its input (the functions are row-wise);
     - ANSI mode names the one bad row; the gtest vectors on the card;
@@ -3083,9 +3104,9 @@ def check_casts(b, outs):
                            [outs["float_to_string[f64]"]], [outs["float_to_string[f64,oracle]"]])
     t0 = time.perf_counter()
     with config.override(cast_device_parse=False):
-        twin = ops.string_to_float(b["f64_strings"], False, c.FLOAT64)
+        twin = ops.string_to_float(_head(b["f64_strings"], N_CAST_MID), False, c.FLOAT64)
     _require_columns_equal("string_to_float[f64] lane arm vs numpy twin",
-                           [outs["string_to_float[f64]"]], [twin])
+                           [_head(outs["string_to_float[f64]"], N_CAST_MID)], [twin])
     twin_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3155,6 +3176,441 @@ def casts(rates, device="cuda"):
     return counts
 
 
+# ---- the order tier ---------------------------------------------------------
+
+
+def _runs(*keys):
+    """Run starts over rows sorted by ``keys``: row 0, and every row whose
+    key tuple differs from the row before it."""
+    start = np.zeros(len(keys[0]), bool)
+    for k in keys:
+        start[1:] |= k[1:] != k[:-1]
+    start[:1] = True
+    return start
+
+
+def _narrow(a):
+    """``a`` in the narrowest signed integer type that holds its values, so
+    that ``np.lexsort`` sorts it by radix (8 and 16 bits) or sooner; the
+    values are unchanged."""
+    for dt in (np.int8, np.int16, np.int32):
+        info = np.iinfo(dt)
+        if a.size == 0 or (a.min() >= info.min and a.max() <= info.max):
+            return a.astype(dt)
+    return a
+
+
+def _segment_starts(start):
+    """For every row, the index of the first row of its run."""
+    return np.maximum.accumulate(np.where(start, np.arange(len(start)), 0))
+
+
+def q67_vector_oracle(tables, k):
+    """q67 (``models/q67.py``) in vectorized numpy, for the full-size run:
+    the rows sorted by (category, price desc, sid) with ``np.lexsort``, the
+    category runs and price-tie groups from change points, rank and dense
+    rank from cumulative maxima and sums, then the kept rows in (category,
+    rank, sid) order.  Equal to ``q67_oracle``, which loops per row."""
+    ss, item = tables["store_sales"], tables["item"]
+    n_items = len(item["category"])
+    sel = (ss["item_sk"] >= 1) & (ss["item_sk"] <= n_items)
+    item_sk, price, sid = ss["item_sk"][sel], ss["price"][sel], ss["sid"][sel]
+    category = item["category"][item_sk - 1]
+    order = np.lexsort((_narrow(sid), _narrow(-price), _narrow(category)))
+    cat, price, item_sk, sid = category[order], price[order], item_sk[order], sid[order]
+    run = _runs(cat)
+    tie = run | _runs(price)
+    seg0 = _segment_starts(run)
+    rk = _segment_starts(tie) - seg0 + 1
+    c = np.cumsum(tie)
+    drk = c - c[seg0] + 1
+    keep = np.flatnonzero(rk <= k)
+    keep = keep[np.lexsort((sid[keep], rk[keep], cat[keep]))]
+    return {"category": cat[keep], "item_sk": item_sk[keep], "price": price[keep],
+            "sid": sid[keep], "rk": rk[keep].astype(np.int32),
+            "drk": drk[keep].astype(np.int32), "rows": np.int64(len(keep))}
+
+
+def _running_max(v, seg0):
+    """Running maximum within each run, by doubling: after the step of width
+    ``d`` row i holds the maximum over its run's last ``2d`` rows up to i."""
+    out, idx, d = v.copy(), np.arange(len(v)), 1
+    longest = int((idx - seg0).max()) + 1 if len(v) else 0
+    while d < longest:
+        take = idx[d:] - d >= seg0[d:]
+        out[d:] = np.where(take, np.maximum(out[d:], out[:-d]), out[d:])
+        d *= 2
+    return out
+
+
+def q64_vector_oracle(tables, k, band0):
+    """q64 (``models/q64.py``) in vectorized numpy, for the full-size run:
+    both dim joins, the band filter, the rows sorted by (category, brand, net
+    desc, sid) with ``np.lexsort``, the (category, brand) runs from change
+    points, then row number, the running and 3-preceding sums from cumulative
+    sums and the running max by doubling, and the first ``k`` rows of each
+    run.  Equal to ``q64_oracle``, which loops per row."""
+    ss, item, cust = tables["store_sales"], tables["item"], tables["customer"]
+    n_items, n_custs = len(item["category"]), len(cust["band"])
+    sel = ((ss["item_sk"] >= 1) & (ss["item_sk"] <= n_items)
+           & (ss["cust_sk"] >= 1) & (ss["cust_sk"] <= n_custs))
+    item_sk, cust_sk = ss["item_sk"][sel], ss["cust_sk"][sel]
+    net = (ss["qty"][sel] * ss["price"][sel]).astype(np.int64)
+    sid = ss["sid"][sel]
+    keep = cust["band"][cust_sk - 1] >= band0
+    cat, brand = item["category"][item_sk - 1][keep], item["brand"][item_sk - 1][keep]
+    net, sid = net[keep], sid[keep]
+    order = np.lexsort((_narrow(sid), _narrow(-net), _narrow(brand), _narrow(cat)))
+    cat, brand, net, sid = cat[order], brand[order], net[order], sid[order]
+    seg0 = _segment_starts(_runs(cat, brand))
+    idx = np.arange(len(net))
+    rn = idx - seg0 + 1
+    cs = np.cumsum(net)
+
+    def frame_sum(lo):
+        return cs - np.where(lo > 0, cs[np.maximum(lo - 1, 0)], 0)
+
+    out = {"category": cat, "brand": brand, "sid": sid, "net": net,
+           "rn": rn.astype(np.int32), "run_net": frame_sum(seg0),
+           "net4": frame_sum(np.maximum(seg0, idx - 3)), "peak": _running_max(net, seg0)}
+    first = rn <= k  # already in (category, brand, rn) order
+    out = {f: v[first] for f, v in out.items()}
+    out["rows"] = np.int64(int(first.sum()))
+    return out
+
+
+def topk_vector_oracle(tables, k):
+    """The global top-k by (price desc, sid asc) without sorting every row:
+    the rows priced at least the k-th largest price, sorted with
+    ``np.lexsort``, their first k.  Equal to ``topk_oracle``."""
+    ss = tables["store_sales"]
+    price, sid = ss["price"], ss["sid"]
+    k = min(k, len(price))
+    if k == 0:
+        return {"price": price[:0], "sid": sid[:0], "rows": np.int64(0)}
+    kth = np.partition(price, len(price) - k)[len(price) - k]
+    cand = np.flatnonzero(price >= kth)
+    cand = cand[np.lexsort((sid[cand], -price[cand]))][:k]
+    return {"price": price[cand], "sid": sid[cand], "rows": np.int64(k)}
+
+
+ORDER_ROWS = 28_800_991  # TPC-DS SF10 store_sales rows
+ORDER_ITEMS = 102_000  # SF10 item rows
+ORDER_CUSTS = 500_000  # SF10 customer rows
+ORDER_CATS = 10  # TPC-DS i_category values
+ORDER_BANDS, ORDER_BAND0 = 20, 10  # TPC-DS income_band rows; q64's band cut
+ORDER_BRANDS = 1000  # brands: about 10,000 (category, brand) runs
+ORDER_K = 100  # q67's rk <= 100, and the top-k's and q64's k
+ORDER_SHARDS = 4  # map shards and range partitions of the multi-shard runs
+ORDER_SMALL = 1 << 20  # rows of the runs held against the CPU run
+ORDER_REPS = 2  # host-to-host calls timed per call, after the path's first
+ORDER_SEED = 67
+
+
+def order_batch(rows, seed=ORDER_SEED):
+    """q67's and q64's tables of ``rows`` store sales at SF10's dims, from the
+    models' numpy generators."""
+    from spark_rapids_jni_tpu_torch.models import make_q64_tables, make_q67_tables
+
+    return {"q67": make_q67_tables(rows, ORDER_ITEMS, ORDER_CATS, seed=seed),
+            "q64": make_q64_tables(rows, ORDER_ITEMS, ORDER_CUSTS, n_cats=ORDER_CATS,
+                                   n_brands=ORDER_BRANDS, n_bands=ORDER_BANDS, seed=seed + 1)}
+
+
+def _order_plans():
+    """name -> (the plan, the batch's tables it runs on)."""
+    from spark_rapids_jni_tpu_torch.models import (
+        naive_sort_limit_plan,
+        q64_plan,
+        q67_plan,
+        topk_sales_plan,
+    )
+
+    return {"q67": (q67_plan(ORDER_K, ORDER_ITEMS), "q67"),
+            "q64": (q64_plan(ORDER_K, ORDER_ITEMS, ORDER_CUSTS, ORDER_BAND0), "q64"),
+            "topk": (topk_sales_plan(ORDER_K), "q67"),
+            "naive": (naive_sort_limit_plan(ORDER_K), "q67")}
+
+
+def _reduce_tables(reduce_plan, part, tables):
+    from spark_rapids_jni_tpu_torch.plans import EXCHANGE_SOURCE, ir
+
+    rt = {EXCHANGE_SOURCE: part}
+    for dim in ir.dim_tables(reduce_plan):
+        rt[dim.table] = tables[dim.table]
+    return rt
+
+
+def _multiparts(plan, tables, nshards, nparts, device):
+    """A cluster's range shuffle in one process: split the fact into map
+    shards, choose the splitters once from the whole input, emit each
+    shard's range partitions against them, regroup by partition, reduce
+    each, ordered-concat.  Returns the result and the bytes that cross the
+    'wire' (every partition's rows)."""
+    from spark_rapids_jni_tpu_torch.plans import (
+        emit_range_partitions,
+        execute_plan,
+        sample_range_splitters,
+        split_exchange_plan,
+    )
+    from spark_rapids_jni_tpu_torch.serve.shuffle import (
+        _slice_order_output,
+        combine_ordered_outputs,
+        scan_table_names,
+        split_tables_n,
+    )
+
+    exchange, reduce_plan = split_exchange_plan(plan)
+    splitters = sample_range_splitters(exchange, tables, nparts, device=device)
+    shards = split_tables_n(tables, scan_table_names(plan), nshards)
+    byshard = [emit_range_partitions(exchange, s, nparts, splitters, device=device)
+               for s in shards]
+    outs, nbytes = [], 0
+    for p in range(nparts):
+        part = {f: np.concatenate([byshard[m][p][f] for m in range(nshards)])
+                for f in exchange.fields}
+        nbytes += sum(v.nbytes for v in part.values())
+        out = execute_plan(None, reduce_plan, _reduce_tables(reduce_plan, part, tables),
+                           device=device)
+        outs.append(_slice_order_output(reduce_plan, out))
+    return combine_ordered_outputs(plan)(outs), nbytes
+
+
+def _governed_reduce(plan, tables, device):
+    """``plan``'s reduce half over its one range partition through
+    run_governed_plan at the default budget (the card's memory), sliced to
+    its valid rows."""
+    from spark_rapids_jni_tpu_torch.plans import (
+        emit_range_partitions,
+        run_governed_plan,
+        split_exchange_plan,
+    )
+    from spark_rapids_jni_tpu_torch.serve.shuffle import _slice_order_output
+
+    exchange, reduce_plan = split_exchange_plan(plan)
+    (part,) = emit_range_partitions(exchange, tables, 1, (), device=device)
+    out = run_governed_plan(None, reduce_plan, _reduce_tables(reduce_plan, part, tables),
+                            device=device)
+    return _slice_order_output(reduce_plan, out)
+
+
+def _order_calls(b, device):
+    """call -> zero-argument call of the port's order-tier entry points on
+    batch ``b``: each plan through run_range_plan_local, q67 and both top-k
+    forms over ORDER_SHARDS map shards into as many range partitions, and
+    q67's reduce plan governed."""
+    from spark_rapids_jni_tpu_torch.serve.shuffle import run_range_plan_local
+
+    plans = _order_plans()
+    calls = {name: (lambda p=p, t=b[t]: run_range_plan_local(p, t, device=device))
+             for name, (p, t) in plans.items()}
+    for name in ("q67", "topk", "naive"):
+        calls[f"{name}_multi"] = (lambda p=plans[name][0]: _multiparts(
+            p, b["q67"], ORDER_SHARDS, ORDER_SHARDS, device))
+    calls["q67_governed"] = lambda: _governed_reduce(plans["q67"][0], b["q67"], device)
+    return calls
+
+
+def _split_multi(outs):
+    """The multi-shard calls' results and wire bytes apart."""
+    wire = {}
+    for name in [n for n in outs if n.endswith("_multi")]:
+        outs[name], wire[name] = outs[name]
+    return outs, wire
+
+
+def order_path(b):
+    """Every order-tier call once on the card with the counters at 0 (no
+    hash kernel may launch: a range exchange places rows by rank); returns
+    the counts, the outputs, the wire bytes and each first call's seconds."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    calls = _order_calls(b, "cuda")
+    torch.cuda.synchronize()
+    hash_cuda.reset_launches()
+    outs, first_s = {}, {}
+    for name, call in calls.items():
+        t0 = time.perf_counter()
+        outs[name] = call()
+        first_s[name] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = dict(hash_cuda.launches)
+    print(json.dumps({"order_launches": counts}))
+    if any(counts.values()):
+        raise AssertionError(f"the order path launched hash kernels: {counts}")
+    outs, wire = _split_multi(outs)
+    return counts, outs, wire, first_s
+
+
+def _require_rows_equal_np(what, got, want):
+    """Equal order-sink outputs: the same fields, dtypes, values and row
+    order."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: fields {sorted(got)} != {sorted(want)}")
+    for f, w in want.items():
+        g, w = np.asarray(got[f]), np.asarray(w)
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w):
+            bad = (int(np.count_nonzero(g != w)) if g.shape == w.shape else "shape")
+            raise AssertionError(f"{what} field {f}: {g.dtype}{g.shape} != {w.dtype}{w.shape}"
+                                 f" ({bad} rows differ)")
+
+
+def check_order(b, outs, wire):
+    """Every full-size output against the vectorized numpy oracles, the
+    multi-shard runs against the local ones, top-k against the naive plan
+    with fewer wire bytes, and the governed reduce against the ungoverned
+    run."""
+    t0 = time.perf_counter()
+    want = {"q67": q67_vector_oracle(b["q67"], ORDER_K),
+            "q64": q64_vector_oracle(b["q64"], ORDER_K, ORDER_BAND0),
+            "topk": topk_vector_oracle(b["q67"], ORDER_K)}
+    oracle_s = time.perf_counter() - t0
+    want["naive"] = want["topk"]
+    for name, w in want.items():
+        _require_rows_equal_np(f"{name} vs the numpy oracle", outs[name], w)
+    for name in ("q67", "topk", "naive"):
+        _require_rows_equal_np(f"{name} over {ORDER_SHARDS}x{ORDER_SHARDS} vs local",
+                               outs[f"{name}_multi"], outs[name])
+    _require_rows_equal_np("governed q67 reduce vs ungoverned", outs["q67_governed"], outs["q67"])
+    row_bytes = 16  # price + sid, int64 each
+    if not (wire["topk_multi"] <= ORDER_SHARDS * ORDER_K * row_bytes < wire["naive_multi"]):
+        raise AssertionError(f"top-k wire bytes {wire['topk_multi']} not below the naive "
+                             f"plan's {wire['naive_multi']}")
+    return {"oracle_s": oracle_s, "rows": {n: int(o["rows"]) for n, o in outs.items()},
+            "q67_categories": int(len(np.unique(outs["q67"]["category"]))),
+            "q64_runs_kept": int(np.count_nonzero(outs["q64"]["rn"] == 1))}
+
+
+def check_order_small():
+    """Every order-tier call at ORDER_SMALL rows on the card against the same
+    call on the CPU (``device="cpu"``), bit for bit and in row order."""
+    t0 = time.perf_counter()
+    small = order_batch(ORDER_SMALL, seed=ORDER_SEED + 10)
+    cuda, _ = _split_multi({n: c() for n, c in _order_calls(small, "cuda").items()})
+    cpu, _ = _split_multi({n: c() for n, c in _order_calls(small, "cpu").items()})
+    for name in cuda:
+        _require_rows_equal_np(f"{name} at {ORDER_SMALL} rows vs the CPU run", cuda[name],
+                               cpu[name])
+    return {"rows": ORDER_SMALL, "calls": len(cuda), "s": time.perf_counter() - t0}
+
+
+def _resident_reduce(plan, tables):
+    """The reduce executor of ``plan`` on its inputs already on the card
+    (CUDA events, median of 5 after 1) with its peak memory, and the
+    partition's rows and uploaded bytes."""
+    from spark_rapids_jni_tpu_torch.plans import (
+        compiled_plan_for,
+        emit_range_partitions,
+        pad_tables,
+        plan_inputs,
+        split_exchange_plan,
+    )
+
+    exchange, reduce_plan = split_exchange_plan(plan)
+    (part,) = emit_range_partitions(exchange, tables, 1, (), device="cuda")
+    rt = _reduce_tables(reduce_plan, part, tables)
+    compiled = compiled_plan_for(reduce_plan, None, rt, "cuda")
+    flat = plan_inputs(compiled, pad_tables(reduce_plan, rt, 1))
+    resident = _timed(lambda: compiled.fn(*flat), 5, 1)
+    return {"partition_rows": len(next(iter(part.values()))),
+            "upload_bytes": sum(x.numel() * x.element_size() for x in flat),
+            "reduce_executor_ms": resident["ms"],
+            "reduce_peak_mem_bytes": resident["peak_mem_bytes"]}
+
+
+def time_order(b, first_s):
+    """Each local call host to host (median of ORDER_REPS) with its peak
+    memory and the mean seconds per call of its steps over those calls
+    (the map emit, rank and sort and download of emit_range_partitions,
+    then the reduce's upload and launch in execute_plan); the reduce
+    executor on resident inputs; the other calls' first seconds."""
+    from spark_rapids_jni_tpu_torch.plans import compiler, runtime
+
+    calls = _order_calls(b, "cuda")
+    lines = {}
+    for name, (plan, table) in _order_plans().items():
+        compiler.RANGE_PHASES.reset()
+        runtime.PHASES.reset()
+        line = _host_to_host(calls[name], ORDER_REPS)
+        steps = {**compiler.RANGE_PHASES.snapshot(), **runtime.PHASES.snapshot()}
+        line["steps_s"] = {k: v / ORDER_REPS for k, v in steps.items()}
+        lines[name] = {**line, **_resident_reduce(plan, b[table])}
+    for name in ("q67_multi", "topk_multi", "naive_multi", "q67_governed"):
+        lines[name] = {"first_call_s": first_s[name]}
+    return lines
+
+
+def order_optimizer(gp):
+    """The q5 and q3 plans of the plans phase (its data), and q3's with its
+    dim gathers swapped, locally on the card through run_governed_plan with
+    the plan_optimizer flag off and on: the answers must be equal, and the
+    swapped plan must be reordered.  Counts the EV_PLAN_REWRITE events."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch.models.q3 import _dims, _facts, _geometry, _q3_tables, q3_plan
+    from spark_rapids_jni_tpu_torch.models.q5 import _plan_and_tables
+    from spark_rapids_jni_tpu_torch.obs import flight
+    from spark_rapids_jni_tpu_torch.plans import run_governed_plan
+
+    q3 = gp["q3"]
+    q3p, q3t = q3_plan(**_geometry(q3)), _q3_tables(_facts(q3), _dims(q3))
+    plans = {"q5": _plan_and_tables(gp["q5"]), "q3": (q3p, q3t),
+             "q3_swapped": (_swap_gathers(q3p), q3t)}
+    flight.recorder().reset_for_tests()
+    out = {}
+    for name, (plan, tables) in plans.items():
+        runs = {}
+        for flag in (False, True):
+            with config.override(plan_optimizer=flag):
+                t0 = time.perf_counter()
+                runs[flag] = run_governed_plan(None, plan, tables, device="cuda")
+                torch.cuda.synchronize()
+                runs[f"{flag}_s"] = time.perf_counter() - t0
+        _require_rows_equal_np(f"{name} with the optimizer vs without", runs[True], runs[False])
+        out[name] = {"off_s": runs["False_s"], "on_s": runs["True_s"]}
+    rewrites = [e["detail"] for e in flight.snapshot() if e["kind"] == flight.EV_PLAN_REWRITE]
+    out["plan_rewrite_events"] = len(rewrites)
+    out["rules"] = sorted({d.split(":rule:")[1].split(":")[0] for d in rewrites})
+    if "join_reorder" not in out["rules"]:
+        raise AssertionError(f"the optimizer did not reorder q3_swapped's joins: {rewrites}")
+    return out
+
+
+def _swap_gathers(plan):
+    """q3's plan with its two dim gathers in the other order (date_dim
+    first): the optimizer's join_reorder puts the smaller dim (item) back
+    first, so with the flag on this plan runs rewritten."""
+    agg = plan.sinks[0]
+    proj, filt = agg.child, agg.child.child
+    upper, lower = filt.child, filt.child.child
+    swapped = dataclasses.replace(lower, child=dataclasses.replace(upper, child=lower.child))
+    return dataclasses.replace(plan, name="q3_swapped", sinks=(dataclasses.replace(
+        agg, child=dataclasses.replace(proj, child=dataclasses.replace(filt, child=swapped))),))
+
+
+def order(gp):
+    """The order phase: q67, q64 and the global top-k at SF10 through the
+    range driver, the multi-shard and governed runs, the path with the
+    counters at 0, the checks, the optimizer on the plans phase's q5 and q3,
+    the times; prints the ``order`` line and returns the path's launch
+    counts."""
+    t0 = time.perf_counter()
+    b = order_batch(ORDER_ROWS)
+    gen_s = time.perf_counter() - t0
+    counts, outs, wire, first_s = order_path(b)
+    checks = check_order(b, outs, wire)
+    del outs
+    checks["cpu_check"] = check_order_small()
+    print(json.dumps({"order": {
+        "rows": ORDER_ROWS, "items": ORDER_ITEMS, "customers": ORDER_CUSTS,
+        "categories": ORDER_CATS, "brands": ORDER_BRANDS, "bands": ORDER_BANDS,
+        "band0": ORDER_BAND0, "k": ORDER_K, "shards": ORDER_SHARDS,
+        "input_bytes": {n: sum(v.nbytes for v in t["store_sales"].values()) for n, t in b.items()},
+        "launches": counts, "wire_bytes": wire, "checks": checks,
+        "calls": time_order(b, first_s), "optimizer": order_optimizer(gp),
+        "batch_gen_s": gen_s}}))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3208,8 +3664,8 @@ def main() -> int:
         dist.destroy_process_group()
         tmp.cleanup()
     path_counts = [counts, col_counts, dist_counts, plan_counts, gov_counts, bloom(),
-                   decimal(), jcudf_rows(rates), casts(rates)]
-    for row in rows:  # the main path is now all nine paths: their launches add up
+                   decimal(), jcudf_rows(rates), casts(rates), order(gp)]
+    for row in rows:  # the main path is now all ten paths: their launches add up
         row["launches"] = sum(c[row["name"]] for c in path_counts)
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))

@@ -249,8 +249,14 @@ class Arbiter:
         with self._task_map_lock:
             if task_id == -1 or self._task_of.get(thread_id) == task_id:
                 self._task_of.pop(thread_id, None)
-        self._blocked_at.pop(thread_id, None)  # no pre_alloc will close it
-        self._until_ready_at.pop(thread_id, None)
+        if thread_id == current_thread_id():
+            # the open windows are the owning thread's keys: removed from
+            # another thread, a parked thread's window stays open for its own
+            # woken pre_alloc to close (and record WOKEN) -- popping it here
+            # would race that pre_alloc (the JAX package's arbiter.py:237 and
+            # :281) and make the WOKEN event come and go
+            self._blocked_at.pop(thread_id, None)
+            self._until_ready_at.pop(thread_id, None)
 
     def task_done(self, task_id):
         self._check(self._lib.arbiter_task_done(self.handle, task_id))

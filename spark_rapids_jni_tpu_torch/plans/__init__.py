@@ -8,17 +8,28 @@
   signature, pow2 batch bucket), with hit/miss/trace/execute counters;
 - :mod:`plans.runtime` -- pad, upload, run and download one execution, and
   :func:`run_governed_plan`, the memory-governed bracket around it (one
-  admission, one retry/split boundary, one flight task per plan).
+  admission, one retry/split boundary, one flight task per plan);
+- :mod:`plans.window` -- sort ranks, sorted runs and the window functions
+  of the order tier;
+- :mod:`plans.optimizer` -- the stats-driven rule rewriter, a copy of the
+  JAX package's.
 """
 
 from spark_rapids_jni_tpu_torch.plans import ir
 from spark_rapids_jni_tpu_torch.plans.cache import CompiledPlan, PlanCache, plan_cache
 from spark_rapids_jni_tpu_torch.plans.compiler import (
+    EXCHANGE_SOURCE,
     cached_compile,
     compile_plan,
+    emit_exchange_partitions,
+    emit_range_partitions,
+    eval_post,
     input_signature,
     output_names,
+    sample_range_splitters,
+    split_exchange_plan,
 )
+from spark_rapids_jni_tpu_torch.plans.optimizer import optimize_plan, rewrite_plan
 from spark_rapids_jni_tpu_torch.plans.runtime import (
     combine_outputs,
     compiled_plan_for,
@@ -43,6 +54,14 @@ __all__ = [
     "compile_plan",
     "input_signature",
     "output_names",
+    "EXCHANGE_SOURCE",
+    "emit_exchange_partitions",
+    "emit_range_partitions",
+    "eval_post",
+    "sample_range_splitters",
+    "split_exchange_plan",
+    "optimize_plan",
+    "rewrite_plan",
     "combine_outputs",
     "compiled_plan_for",
     "execute_plan",

@@ -11,25 +11,34 @@ data shard and sums every sink output over the data axis (one
 ``all_reduce`` per dtype) before ``post`` runs, as the JAX program psums
 before ``post``.
 
-The order tier (Window, Sort, TopK, RangeExchange), the cross-process
-exchange split and the ragged calling convention are not ported yet.
+The order tier runs here too: Window, Sort and TopK emitters sort rows by
+their canonical u64 ranks (plans/window.py), and a plan with a RangeExchange
+splits at it (:func:`split_exchange_plan`) into a map side that emits range
+partitions (:func:`emit_range_partitions`) and a local reduce plan.  The
+ragged calling convention is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from spark_rapids_jni_tpu_torch import device as _device
+from spark_rapids_jni_tpu_torch.obs.phases import PhaseTimes
 from spark_rapids_jni_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_size
 from spark_rapids_jni_tpu_torch.parallel.shuffle import all_to_all_shuffle, partition_of
 from spark_rapids_jni_tpu_torch.plans import ir
+from spark_rapids_jni_tpu_torch.plans import window as win
 from spark_rapids_jni_tpu_torch.plans.cache import CompiledPlan, plan_cache
 
 __all__ = ["compile_plan", "cached_compile", "cached_executor", "input_signature",
-           "output_names", "emitter", "plan_device", "segment_sum", "window_index", "DTYPES"]
+           "output_names", "emitter", "plan_device", "segment_sum", "window_index", "DTYPES",
+           "EXCHANGE_SOURCE", "split_exchange_plan", "emit_exchange_partitions",
+           "emit_range_partitions", "sample_range_splitters", "eval_post", "RANGE_PHASES"]
 
 DTYPES = {
     "bool": torch.bool,
@@ -43,8 +52,11 @@ DTYPES = {
 #: the implicit per-scan row-validity input the executor appends
 VALID_FIELD = "__valid__"
 
-#: nodes of the order tier, which the port's executor does not run yet
-_ORDER_TIER = (ir.Window, ir.Sort, ir.TopK, ir.RangeExchange)
+#: emit_range_partitions' steps, on the host clock, each ended by a wait for
+#: the device: the upload and the exchange's child subtree (``emit``), the
+#: ranks, the key-order sort and the partition bounds (``rank_sort``), and
+#: the partitions' transfer to host numpy (``download``)
+RANGE_PHASES = PhaseTimes("emit", "rank_sort", "download")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -263,6 +275,92 @@ def _emit_exchange(node: ir.Exchange, ctx: _Ctx) -> _Rows:
     return _Rows(dict(ex.columns), ex.valid)
 
 
+@emitter(ir.RangeExchange)
+def _emit_range_exchange(node: ir.RangeExchange, ctx: _Ctx):
+    # registered so that split_exchange_plan knows the node; there is no
+    # in-process body -- summing over the data axis cannot merge ordered row
+    # vectors, so a range shuffle only exists split at the exchange
+    raise ValueError(
+        "RangeExchange has no in-process emitter: split the plan "
+        "(split_exchange_plan) and run it on the serve shuffle plane, or "
+        "through its single-process oracle (serve.shuffle."
+        "run_range_plan_local)")
+
+
+def _order_env(keys, cols, mask):
+    """(permutation, sorted per-key ranks) for ``(expr, ascending)`` sort keys
+    over a row environment -- the shared front half of every order-sensitive
+    emitter."""
+    ranks = [win.sort_rank(torch.as_tensor(_eval(e, cols)), asc) for e, asc in keys]
+    order = win.order_permutation(ranks, mask)
+    return order, [r[order] for r in ranks]
+
+
+def _gather_cols(cols, order):
+    return {k: v[order] if isinstance(v, torch.Tensor) and v.dim() else v
+            for k, v in cols.items()}
+
+
+@emitter(ir.Window)
+def _emit_window(node: ir.Window, ctx: _Ctx) -> _Rows:
+    rows = _emit(node.child, ctx)
+    pkeys = tuple((e, True) for e in node.partition_by)
+    order, sranks = _order_env(pkeys + node.order_by, rows.cols, rows.mask)
+    cols = _gather_cols(rows.cols, order)
+    mask = rows.mask[order]
+    np_keys = len(node.partition_by)
+    run_start = win.run_boundaries(sranks[:np_keys], mask)
+    ochange = (win.change_points(sranks[np_keys:]) if node.order_by
+               else torch.zeros_like(run_start))
+    for f in node.funcs:
+        if f.kind == "row_number":
+            out = win.row_number(run_start)
+        elif f.kind == "rank":
+            out = win.rank(run_start, ochange)
+        elif f.kind == "dense_rank":
+            out = win.dense_rank(run_start, ochange)
+        else:
+            v = torch.as_tensor(_eval(f.arg, cols)).to(_dtype(f.dtype))
+            # invalid rows sort last and open their own run (run_boundaries),
+            # so they never reach a valid segment; zeroing keeps even the
+            # masked outputs finite
+            v = torch.where(mask, v, torch.zeros((), dtype=v.dtype, device=v.device))
+            if f.kind == "sum":
+                out = win.framed_sum(v, run_start, f.preceding)
+            else:
+                out = win.framed_minmax(v, run_start, f.kind, f.preceding)
+        if f.kind in ("rank", "dense_rank", "row_number"):
+            out = out.to(_dtype(f.dtype))
+        cols[f.name] = out
+    return _Rows(cols, mask)
+
+
+def _order_sink_outputs(node, ctx: _Ctx, k=None) -> Dict[str, object]:
+    """Shared Sort/TopK sink body: order rows (invalid last), emit the named
+    field vectors plus the implicit valid-``rows`` count; TopK keeps the first
+    ``min(k, n)`` rows."""
+    rows = _emit(node.child, ctx)
+    order, _ranks = _order_env(node.keys, rows.cols, rows.mask)
+    cols = _gather_cols(rows.cols, order)
+    nvalid = rows.mask.to(torch.int64).sum()
+    out = {}
+    for f in node.fields:
+        v = cols[f]
+        out[f] = v[:min(int(k), v.shape[0])] if k is not None else v
+    out["rows"] = torch.clamp(nvalid, max=k) if k is not None else nvalid
+    return out
+
+
+@emitter(ir.Sort)
+def _emit_sort(node: ir.Sort, ctx: _Ctx) -> Dict[str, object]:
+    return _order_sink_outputs(node, ctx)
+
+
+@emitter(ir.TopK)
+def _emit_topk(node: ir.TopK, ctx: _Ctx) -> Dict[str, object]:
+    return _order_sink_outputs(node, ctx, k=int(node.k))
+
+
 @emitter(ir.PresenceCount)
 def _emit_presence_count(node: ir.PresenceCount, ctx: _Ctx) -> Dict[str, object]:
     # lazy: models.q97 imports plans at module level; _count_runs stays
@@ -282,11 +380,16 @@ def output_names(plan: ir.Plan) -> Tuple[str, ...]:
     order, then the implicit ``dropped`` (plans with an Exchange), then post
     outputs -- filtered/ordered by ``plan.outputs`` when set."""
     names: List[str] = []
+    ir.order_sink(plan)  # validates that an order sink is the plan's only sink
     for sink in plan.sinks:
         if isinstance(sink, ir.SegmentAgg):
             names.extend(name for name, _e, _d in sink.aggs)
         elif isinstance(sink, ir.PresenceCount):
             names.extend(sink.names)
+        elif isinstance(sink, (ir.Sort, ir.TopK)):
+            # ordered field vectors plus the implicit valid-row count
+            names.extend(sink.fields)
+            names.append("rows")
         else:
             raise TypeError(f"not a sink node: {sink!r}")
     if ir.has_exchange(plan):
@@ -373,11 +476,6 @@ def compile_plan(plan: ir.Plan, mesh, signature: Tuple,
                  device: _device.DeviceLike = None) -> CompiledPlan:
     """Build the executor of ``plan`` for one input signature.  Uncached --
     go through :func:`cached_compile`."""
-    order = sorted({type(n).__name__ for n in ir.walk(plan) if isinstance(n, _ORDER_TIER)})
-    if order:
-        raise ValueError(
-            f"plan {plan.name!r} contains {order}: the order-tier nodes (Window, "
-            f"Sort, TopK, RangeExchange) come with the port's order tier")
     layout = _arg_layout(plan)
     if len(signature) != len(layout):
         raise ValueError("signature does not match the plan's arg layout")
@@ -385,6 +483,17 @@ def compile_plan(plan: ir.Plan, mesh, signature: Tuple,
     local = mesh is None
     if local and ir.has_exchange(plan):
         raise ValueError(f"plan {plan.name!r} contains an Exchange: mesh required")
+    if ir.range_exchange_nodes(plan):
+        raise ValueError(
+            f"plan {plan.name!r} contains a RangeExchange: it only runs "
+            f"split across the serve shuffle plane (split_exchange_plan)")
+    if not local and ir.order_sink(plan) is not None:
+        # the mesh path sums every sink output over the data axis: right for
+        # additive partials, wrong for ordered row vectors, which a range
+        # shuffle distributes instead
+        raise ValueError(
+            f"plan {plan.name!r} has an order-sensitive sink: compile "
+            f"locally (per shuffle partition), not under a mesh")
     group = None if local else axis_group(mesh, DATA_AXIS)
 
     def run(*flat):
@@ -426,3 +535,187 @@ def cached_compile(plan: ir.Plan, mesh, tables,
     ``tables``, and the device of a local plan), via the process-global plan
     cache."""
     return cached_executor(plan, mesh, input_signature(plan, tables), device)
+
+
+# ------------------------------------------- cross-process exchange split
+# A plan whose exchange runs as a real shuffle between processes splits at
+# the exchange node into two halves that reuse this executor unchanged:
+#
+# - the **map fragment** -- the exchange's child subtree -- runs eagerly on
+#   the plan's device over one shard of the scan tables (the same emitter
+#   bodies, so values are bit-identical); rows partition by the placement
+#   hash (Exchange) or by range against shared splitters (RangeExchange),
+#   and masked rows drop;
+# - the **reduce plan** -- the original plan with the exchange replaced by a
+#   Scan of the synthetic ``EXCHANGE_SOURCE`` table -- runs as a local plan
+#   over the concatenated received partitions.  Its sinks are partials (summed
+#   across executors, or concatenated in partition order for a range
+#   shuffle), so ``post`` moves out of it and runs once over the combined
+#   sinks (:func:`eval_post`).
+
+
+#: the synthetic scan table the reduce half reads received rows from
+EXCHANGE_SOURCE = "__exchange__"
+
+
+def split_exchange_plan(plan: ir.Plan):
+    """``(exchange_node, reduce_plan)`` for a plan with exactly ONE Exchange
+    or RangeExchange.  The reduce plan is local (no exchange, no mesh), reads
+    the shuffled fields from ``Scan(EXCHANGE_SOURCE, fields)``, keeps the
+    sinks, and drops ``post``/``outputs``: partials must be combined across
+    executors before post expressions run."""
+    exchanges = ir.exchange_nodes(plan) + ir.range_exchange_nodes(plan)
+    if len(exchanges) != 1:
+        raise ValueError(
+            f"plan {plan.name!r} has {len(exchanges)} Exchange nodes; the "
+            f"cross-process shuffle supports exactly one")
+    exchange = exchanges[0]
+
+    def rebuild(node):
+        if node is exchange or node == exchange:
+            return ir.Scan(EXCHANGE_SOURCE, node.fields)
+        kw = {}
+        changed = False
+        for f in dataclasses.fields(node):
+            v = getattr(node, f.name)
+            if isinstance(v, tuple) and v and all(type(item) in _EMITTERS for item in v):
+                nv = tuple(rebuild(item) for item in v)
+                changed = changed or nv != v
+                kw[f.name] = nv
+            elif type(v) in _EMITTERS:
+                nv = rebuild(v)
+                changed = changed or nv is not v
+                kw[f.name] = nv
+            else:
+                kw[f.name] = v
+        return dataclasses.replace(node, **kw) if changed else node
+
+    sinks = tuple(rebuild(s) for s in plan.sinks)
+    reduce_plan = ir.Plan(f"{plan.name}:reduce", sinks)
+    extra = [s.table for s in ir.scan_tables(reduce_plan) if s.table != EXCHANGE_SOURCE]
+    if extra:
+        raise ValueError(
+            f"plan {plan.name!r} scans {extra} ABOVE its Exchange: the "
+            f"reduce half would re-read whole fact tables per executor "
+            f"and double-count -- every Scan must feed the Exchange")
+    return exchange, reduce_plan
+
+
+def _emit_host_rows(exchange, tables, device: _device.DeviceLike = None) -> _Rows:
+    """Eagerly emit an exchange node's child subtree over host shard tables,
+    uploaded to ``device`` (the card unless the caller asks for the CPU) --
+    the shared map-side front half of the hash and range partition
+    emitters."""
+    dev = _device.resolve(device)
+    inputs: Dict[str, Dict[str, torch.Tensor]] = {}
+    rowvalid: Dict[str, torch.Tensor] = {}
+    for table, fields in tables.items():
+        inputs[table] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                         for k, v in fields.items()}
+        n = len(next(iter(fields.values())))
+        rowvalid[table] = torch.ones((n,), dtype=torch.bool, device=dev)
+    return _emit(exchange.child, _Ctx(inputs, rowvalid, None))
+
+
+def _rank_cols(exchange: ir.RangeExchange, rows: _Rows) -> List[torch.Tensor]:
+    """The rank columns (u64 bits as int64, on the rows' device) of a range
+    exchange's sort keys -- the same canonical transform the order emitters
+    apply, so partition placement and reduce-side order cannot disagree.
+    (The JAX package's ``_host_rank_cols`` ranks the same keys in numpy.)"""
+    return [win.sort_rank(torch.as_tensor(_eval(e, rows.cols)), asc) for e, asc in exchange.keys]
+
+
+def emit_exchange_partitions(exchange: ir.Exchange, tables, nparts: int,
+                             device: _device.DeviceLike = None) -> list:
+    """The map side of one shard of a hash shuffle: emit the exchange's child
+    subtree on ``device``, place rows with the placement hash the in-mesh
+    all_to_all uses, and return ``nparts`` host partition tables of the
+    exchange fields (masked rows dropped)."""
+    rows = _emit_host_rows(exchange, tables, device)
+    part = partition_of(_eval(exchange.key, rows.cols), nparts)
+    out = []
+    for p in range(nparts):
+        sel = rows.mask & (part == p)
+        out.append({f: rows.cols[f][sel].cpu().numpy() for f in exchange.fields})
+    return out
+
+
+def sample_range_splitters(exchange: ir.RangeExchange, tables, nparts: int,
+                           sample_cap: int = 4096,
+                           device: _device.DeviceLike = None) -> list:
+    """Driver-side splitter choice for one range shuffle: emit the map
+    fragment over the full input once (on ``device``), sample the valid
+    rows' composite ranks evenly, take quantile boundaries
+    (:func:`window.choose_splitters`).  Every map shard must get the same
+    splitters.  The sample is drawn on the device, so only it reaches the
+    host; the splitters are the JAX package's python ints."""
+    rows = _emit_host_rows(exchange, tables, device)
+    ranks = _rank_cols(exchange, rows)
+    sel = torch.nonzero(rows.mask).flatten()
+    if sel.numel() > sample_cap:
+        at = np.linspace(0, sel.numel() - 1, sample_cap).astype(np.int64)
+        sel = sel[torch.from_numpy(at).to(sel.device)]
+    sample = [r[sel].cpu().numpy().view(np.uint64) for r in ranks]
+    return win.choose_splitters(sample, np.ones(sel.numel(), bool), nparts,
+                                sample_cap=sample_cap)
+
+
+def emit_range_partitions(exchange: ir.RangeExchange, tables, nparts: int, splitters,
+                          device: _device.DeviceLike = None) -> list:
+    """The map side of one shard of a RANGE shuffle: emit the child subtree
+    on ``device``, rank rows by the exchange's sort keys, sort the valid rows
+    by them (stable: ties keep their input order) and bucket them against
+    the dispatch-time ``splitters``.  Partition ``p``'s every row orders
+    before partition ``p+1``'s, so the reduce side's sorted outputs
+    concatenate into global order with no merge.  The partitions are host
+    numpy tables, equal to the JAX package's.
+
+    With ``exchange.limit`` set (partial top-k pushdown), only this shard's
+    first ``limit`` ordered valid rows are partitioned at all: the global
+    top-k is a subset of the per-shard top-k's."""
+    if len(splitters) != nparts - 1:
+        raise ValueError(
+            f"range shuffle wants {nparts - 1} splitters, got {len(splitters)}")
+    with RANGE_PHASES.phase("emit"):
+        rows = _emit_host_rows(exchange, tables, device)
+        nvalid = int(rows.mask.sum())  # waits for the emit
+    with RANGE_PHASES.phase("rank_sort"):
+        ranks = _rank_cols(exchange, rows)
+        # valid rows in key order, invalid ones after them
+        sel = win.order_permutation(ranks, rows.mask)[:nvalid]
+        if exchange.limit is not None:
+            sel = sel[:int(exchange.limit)]
+        keys = [win.signed_key(r[sel]) for r in ranks]
+        # the partition is the count of splitters the row's composite rank
+        # orders strictly after; it never falls along the sorted rows, so
+        # each partition is one contiguous slice of them
+        part = torch.zeros(sel.shape[0], dtype=torch.int64, device=sel.device)
+        for s in splitters:
+            gt = torch.zeros_like(part, dtype=torch.bool)
+            eq = torch.ones_like(part, dtype=torch.bool)
+            for k, sv in zip(keys, s):
+                sv = win.signed_splitter(sv)
+                gt |= eq & (k > sv)
+                eq &= k == sv
+            part += gt
+        counts = torch.bincount(part, minlength=nparts).tolist()  # waits for the sort
+    with RANGE_PHASES.phase("download"):
+        cols = {f: rows.cols[f][sel].cpu().numpy() for f in exchange.fields}
+        out, at = [], 0
+        for c in counts:
+            out.append({f: np.ascontiguousarray(v[at:at + c]) for f, v in cols.items()})
+            at += c
+    return out
+
+
+def eval_post(plan: ir.Plan, sums: Dict[str, object]) -> Dict[str, np.ndarray]:
+    """Post expressions over the cross-executor combined sink outputs -- the
+    host twin of the in-mesh path's sum-then-post ordering.  Returns sinks and
+    posts as numpy, filtered and ordered like :func:`output_names` (minus the
+    in-mesh path's implicit ``dropped``, which exact-size partitions cannot
+    produce)."""
+    env = {k: torch.as_tensor(np.asarray(v)) for k, v in sums.items()}
+    for name, expr in plan.post:
+        env[name] = torch.as_tensor(_eval(expr, env))
+    names = [n for n in output_names(plan) if n != "dropped"]
+    return {n: env[n].numpy() for n in names}

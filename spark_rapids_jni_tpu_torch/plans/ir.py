@@ -21,9 +21,11 @@ Two layers:
   :class:`SegmentAgg` (masked segment sums into a dense group space),
   :class:`Union` (tagged row concat), :class:`Exchange` (the all_to_all
   hash shuffle), :class:`PresenceCount` (q97's sort-merge presence
-  counting) -- and the order-sensitive tier: :class:`RangeExchange`,
-  :class:`Window`, and the :class:`Sort`/:class:`TopK` sinks, which the
-  port's executor does not run yet.
+  counting) -- and the order-sensitive tier: :class:`RangeExchange` (the
+  range shuffle a distributed sort rides), :class:`Window` (rank,
+  dense_rank, row_number and framed sum/min/max over sorted runs,
+  plans/window.py), and the :class:`Sort`/:class:`TopK` sinks that emit
+  ordered row vectors.
 
 A :class:`Plan` bundles sink nodes (aggregate producers) with post
 expressions over their outputs; under a mesh the executor sums the sink

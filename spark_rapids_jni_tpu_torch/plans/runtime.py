@@ -34,6 +34,7 @@ from spark_rapids_jni_tpu_torch import config
 from spark_rapids_jni_tpu_torch import device as _device
 from spark_rapids_jni_tpu_torch.mem.governed import ShuffleCapacityExceeded
 from spark_rapids_jni_tpu_torch.obs import flight as _flight
+from spark_rapids_jni_tpu_torch.obs.phases import PhaseTimes
 from spark_rapids_jni_tpu_torch.obs.seam import COLLECTIVE, seam
 from spark_rapids_jni_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -56,9 +57,14 @@ from spark_rapids_jni_tpu_torch.plans.compiler import (
 __all__ = ["pad_tables", "plan_working_set_bytes", "execute_plan", "run_governed_plan",
            "split_scan_tables", "combine_outputs", "input_signature_raw",
            "compiled_plan_for", "plan_inputs", "plan_retry_stats",
-           "suggested_presplit_depth", "reset_plan_retry_stats"]
+           "suggested_presplit_depth", "reset_plan_retry_stats", "PHASES"]
 
 Tables = Dict[str, Dict[str, np.ndarray]]
+
+# execute_plan's two steps, on the host clock: ``upload`` is the pad, the
+# executor lookup and the inputs' transfer to the device; ``launch`` is the
+# run and the download of its outputs (which waits for the device)
+PHASES = PhaseTimes("upload", "launch")
 
 
 # --------------------------------------------------------------------------
@@ -278,11 +284,12 @@ def execute_plan(mesh, plan: ir.Plan, tables: Tables,
     (``obs.seam.serialize_category``).  No governance here: callers bracket
     this (:func:`run_governed_plan`, or the model runners' own drivers).
     """
-    padded = pad_tables(plan, tables, _dp(mesh))
-    compiled = cached_compile(plan, mesh, padded, device)
-    flat = plan_inputs(compiled, padded)
+    with PHASES.phase("upload"):
+        padded = pad_tables(plan, tables, _dp(mesh))
+        compiled = cached_compile(plan, mesh, padded, device)
+        flat = plan_inputs(compiled, padded)
     t0 = time.perf_counter()
-    with seam(COLLECTIVE, f"launch:plan:{plan.name}"):
+    with PHASES.phase("launch"), seam(COLLECTIVE, f"launch:plan:{plan.name}"):
         outputs = {name: _host(v) for name, v in zip(compiled.out_names, compiled.fn(*flat))}
     plan_cache.record_execute(time.perf_counter() - t0)
     if int(outputs.get("dropped", 0)) > 0:
@@ -352,14 +359,17 @@ def run_governed_plan(
     The whole pipeline is admitted as one working set; RetryOOM re-runs the
     plan on the same batch, SplitAndRetryOOM halves every scan table and
     re-executes the plan per half, and partial outputs combine by addition.
+    An order plan (Sort/TopK sink) never splits: it retries at full size.
     One flight-recorder task spans the plan.  A local plan (``mesh`` None)
     runs on ``device``, the card unless the caller asks for the CPU; under a
     mesh every rank calls this with the same host tables, and the admission
     outcome and the adaptive pre-split depth are agreed over the data axis.
 
-    The plan optimizer and the result cache (the ``plan_optimizer`` and
-    ``serve_result_cache`` flags) are not ported yet: either flag raises
-    ``NotImplementedError`` rather than being ignored.
+    With the ``plan_optimizer`` flag set, the stats of ``tables`` are
+    recorded (models/tables.py) and the plan is rewritten first
+    (plans/optimizer.py).  The result cache (the ``serve_result_cache``
+    flag) is not ported yet: that flag raises ``NotImplementedError`` rather
+    than being ignored.
     """
     from spark_rapids_jni_tpu_torch.mem.governed import (
         agreed_outcome,
@@ -368,16 +378,22 @@ def run_governed_plan(
         task_context,
     )
 
-    for flag, item in (("plan_optimizer", "A.12 (plans/optimizer.py)"),
-                       ("serve_result_cache", "A.15 (plans/rcache.py)")):
-        if config.get(flag):
-            raise NotImplementedError(
-                f"run_governed_plan: the {flag!r} flag is set, but the port has no "
-                f"{item} yet")
+    if config.get("serve_result_cache"):
+        raise NotImplementedError(
+            "run_governed_plan: the 'serve_result_cache' flag is set, but the port "
+            "has no A.15 (plans/rcache.py) yet")
     dp = _dp(mesh)
     group = None if mesh is None else axis_group(mesh, DATA_AXIS)
     if budget is None:
         budget = default_device_budget()
+    # the stats-driven rewriter runs first: stats observed from this upload
+    # seed its join-reorder rule.  Memoized per (plan, stats); off by default
+    if config.get("plan_optimizer"):
+        from spark_rapids_jni_tpu_torch.models import tables as _tabreg
+        from spark_rapids_jni_tpu_torch.plans.optimizer import optimize_plan
+
+        _tabreg.observe_tables(tables)
+        plan = optimize_plan(plan)
     scans = ir.scan_tables(plan)
     tables = _upload_dims(plan, tables, mesh, device)
     # ordered row vectors do not combine by addition, and a row-halved

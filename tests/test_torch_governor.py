@@ -253,7 +253,8 @@ def metrics(pkg, gov):
 
 
 # scenario -> (what the scenario must observe, on both packages; whether the
-# flight-event kinds are compared in order or as a set -- threads interleave)
+# flight-event kinds are compared in order or as a set -- threads interleave --
+# or, for "woken_race", in order but for the JAX package's one racy "woken")
 SCENARIOS = {
     "injected_retry_and_split": (
         injected_retry_and_split,
@@ -266,7 +267,7 @@ SCENARIOS = {
         ["GpuRetryOOM", 5, "GpuSplitAndRetryOOM", 1, 1, 0], "list"),
     "watchdog_breaks_deadlock": (watchdog_breaks_deadlock, ["GpuRetryOOM", 5, 0], "list"),
     "thread_removed_while_blocked": (
-        thread_removed_while_blocked, [3, "ThreadRemovedError", 0], "list"),
+        thread_removed_while_blocked, [3, "ThreadRemovedError", 0], "woken_race"),
     "metrics": (metrics, ["GpuRetryOOM"] * 3 + [3, 0, True, True, 0], "set"),
 }
 
@@ -279,6 +280,15 @@ def test_arbiter_scenario_matches_jax(name):
     assert port_seen == jax_seen == want
     if kinds_as == "set":
         port_kinds, jax_kinds = sorted(set(port_kinds)), sorted(set(jax_kinds))
+    if kinds_as == "woken_race":
+        # the JAX package pops the removed thread's open window on the removing
+        # thread (spark_rapids_jni_tpu/mem/arbiter.py:237) while the woken
+        # thread's pre_alloc pops it to record "woken" (:281), so its "woken"
+        # comes and goes; the port leaves the window to the woken thread, which
+        # records it on every run
+        assert port_kinds == ["blocked", "woken"]
+        port_kinds = [k for k in port_kinds if k != "woken"]
+        jax_kinds = [k for k in jax_kinds if k != "woken"]
     assert port_kinds == jax_kinds
     assert port_kinds, "the scenario recorded no flight event"
 

@@ -351,6 +351,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spark_rapids_jni_tpu_torch.ops.float_to_string\n"
         "import spark_rapids_jni_tpu_torch.ops.format_float\n"
         "import spark_rapids_jni_tpu_torch.ops.cast_decimal_to_string\n"
+        "import spark_rapids_jni_tpu_torch.plans.window\n"
+        "import spark_rapids_jni_tpu_torch.plans.optimizer\n"
+        "import spark_rapids_jni_tpu_torch.models.q67, spark_rapids_jni_tpu_torch.models.q64\n"
+        "import spark_rapids_jni_tpu_torch.models.tables\n"
+        "import spark_rapids_jni_tpu_torch.serve, spark_rapids_jni_tpu_torch.serve.shuffle\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_mesh_ranks  # what spawned gloo ranks import\n"
         "import chip_smoke\n"
