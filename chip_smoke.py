@@ -35,7 +35,7 @@ port package beside it.  Otherwise it:
    ``mm_hash_bytes`` for the list's element steps, ``mm_hash_strings`` for
    the struct's string;
 8. holds every column-hash call bit for bit against the same inputs on the
-   CPU and checks the Spark string, mixed-row and string-list vectors on the
+   CPU over their first 2**20 rows and checks the Spark string, mixed-row and string-list vectors on the
    card; holds each entry point bit for bit against its plain version with
    per-row and scalar hashes, and times it: ``mm_hash_strings`` on id16 and
    desc at 2**24 rows and on a hazard column (rows of 0-100 B with a few of
@@ -112,7 +112,7 @@ port package beside it.  Otherwise it:
    2**24 rows at scale 6, with and without ``interim_cast``, the divide,
    integer-divide, remainder, add and subtract calls at 2**22 rows with 1%
    zero divisors, and one call per remaining branch at 2**20 rows; holds
-   every output against the CPU run on a strided 65,536-row sample and the
+   every output against the CPU run on a strided 16,384-row sample and the
    ``DecimalUtilsTest`` vectors on the card, and prints a ``decimal`` line
    (time, profiled kernels and peak memory per call);
 14. drives the JCUDF row path with the counters at 0 again (no kernel may
@@ -136,7 +136,7 @@ port package beside it.  Otherwise it:
    digits over 2**22 FLOAT64 and FLOAT32 rows; ``to_integers_with_base`` and
    ``from_integers_with_base`` at base 16 and 10 over 2**22 rows; holds the
    lane arms against the oracle on whole outputs and the numpy twin on
-   2**22 rows, every call against the CPU run on a strided 2**19-row
+   2**22 rows, every call against the CPU run on a strided 2**18-row
    sample, ANSI mode's
    error row and the gtest vectors on the card, and prints a ``casts`` line
    (per call: time, phases, profiled kernels, peak memory, bytes bound;
@@ -159,9 +159,25 @@ port package beside it.  Otherwise it:
    ``order`` line (per call: host-to-host seconds, peak memory, the steps
    of those timed calls as the entry points' own phase timers read them --
    the map emit, rank and sort, download, the reduce's upload and launch --
-   and the reduce executor on resident inputs); then the card's name and power limit, the ``kernels``
-   line (all seven kernels, their launches over the ten paths) and, last,
-   the ``ok`` line.
+   and the reduce executor on resident inputs);
+17. drives the JSON family with the counters at 0 again (no kernel may
+   launch), on a Spark-style event column of 2**22 rows (seed 71: lengths
+   33-1011 B, mean 212.5 B, 0.89 GB of chars; 10% null rows, 2%
+   malformed rows; nesting depth 1-6, arrays of objects, escapes and
+   ``\\uXXXX``, single-quoted strings, floats with exponents, ``-0``):
+   ``get_json_object_multiple_paths`` over 8 paths (among them
+   ``$.store.fruit[*].weight``, ``$.store.book``, ``$.k0``,
+   ``$.store.fruit[0]``, ``$.*`` and one no row matches), one single-path
+   ``get_json_object`` and ``from_json`` over the column with its malformed
+   rows nulled, all on the device arm; holds every output bit for bit
+   against the host arm on the card over the first 2**16 rows, the port's
+   CPU run of the first 2**14 rows and ``tests/json_oracle.py`` over the
+   first 2**12, checks that ``from_json`` of the whole column raises at the
+   expected row, and prints a ``json`` line (per call: time, peak memory,
+   phases, the kernels the profiler sees on 2**14 rows, bytes bound); then
+   the card's name and power limit, the ``kernels`` line (all seven
+   kernels, their launches over the eleven paths) and, last, the ``ok``
+   line.
 
 Every check that fails raises, and the script then exits non-zero.
 """
@@ -617,16 +633,31 @@ def column_hash_path(batch):
     return counts, outs
 
 
+COL_CPU_ROWS = 1 << 20  # rows of each column-hash call held against the CPU run
+
+
+def _head_rows(col, n):
+    """The first ``n`` rows of a flat column of the column-hash batch (a
+    nested one of at most ``n`` rows is returned whole)."""
+    if col.size <= n:
+        return col
+    if hasattr(col, "chars"):
+        return _head(col, n)
+    valid = None if col.validity is None else col.validity[:n]
+    return dataclasses.replace(col, hi=col.hi[:n], lo=col.lo[:n], validity=valid)
+
+
 def check_column_hash_against_cpu(batch, outs):
     """Every column-hash call held bit for bit against the same inputs run on
-    the CPU; returns each CPU run's seconds."""
-    cpu_batch = {k: _on(v, "cpu") for k, v in batch.items()}
+    the CPU, over the first COL_CPU_ROWS rows; returns each CPU run's
+    seconds."""
+    cpu_batch = {k: _on(_head_rows(v, COL_CPU_ROWS), "cpu") for k, v in batch.items()}
     cpu_s = {}
     for name, call in _column_hash_calls(cpu_batch).items():
         t0 = time.perf_counter()
         want = call()
         cpu_s[name] = time.perf_counter() - t0
-        _require_equal(f"{name} vs CPU", outs[name].data, want.data)
+        _require_equal(f"{name} vs CPU", outs[name].data[:COL_CPU_ROWS], want.data)
     return cpu_s
 
 
@@ -2214,7 +2245,7 @@ def bloom(device="cuda"):
 N_DEC = 1 << 24  # rows of multiply128's columns (2 x 256 MiB)
 N_DEC_DIV = 1 << 22  # rows of the divide, remainder and add/subtract calls
 N_DEC_BRANCH = 1 << 20  # rows of the calls that reach the remaining branches
-DEC_SAMPLE = 1 << 16  # rows of each call held against the CPU run (strided)
+DEC_SAMPLE = 1 << 14  # rows of each call held against the CPU run (strided)
 DEC_REPS, DEC_WARMUP = 3, 0  # the path's own call warms each one up
 
 
@@ -2717,7 +2748,7 @@ def jcudf_rows(rates, device="cuda"):
 N_CAST = 1 << 24  # rows of the FLOAT64 column (128 MiB) and of the integer strings
 N_CAST_MID = 1 << 22  # rows of the decimal, format_float and base-cast calls
 N_CAST_CORPUS = 1 << 20  # rows of the adversarial parse corpus and the ANSI column
-CAST_SAMPLE = 1 << 19  # rows of each call held against the CPU run (strided)
+CAST_SAMPLE = 1 << 18  # rows of each call held against the CPU run (strided)
 CAST_REPS, CAST_WARMUP = 5, 1
 
 
@@ -3611,6 +3642,396 @@ def order(gp):
     return counts
 
 
+# ---- the JSON family ----------------------------------------------------------
+
+N_JSON = 1 << 22  # event rows: lengths 33-1011 B, mean 212.5 B, 0.89 GB of chars
+JSON_SEED = 71
+JSON_POOL = 1 << 14  # distinct documents the rows are drawn from (each row gets its own id)
+JSON_NULL, JSON_BAD = 0.10, 0.02  # null rows; malformed (truncated) documents
+JSON_HOST_ROWS = 1 << 16  # rows held device arm against host arm on the card
+JSON_CPU_ROWS = 1 << 14  # rows held against the port's CPU run
+JSON_ORACLE_ROWS = 1 << 12  # rows held against tests/json_oracle.py
+JSON_PROFILE_ROWS = 1 << 14  # rows of the calls whose kernels the profiler counts
+JSON_REPS, JSON_WARMUP = 5, 0  # the warm-up is each call's own run on the path
+JSON_PATHS = ["$.store.fruit[*].weight", "$.store.book", "$.k0", "$.store.fruit[0]", "$.*",
+              "$.user.name", "$.tags[1]", "$.no_such_field"]
+JSON_SINGLE = "$.store.bicycle.price"
+
+_JSON_WORDS = ["apple", "pear", "fig", "kiwi", "plum", "red", "blue", "Nigel Rees",
+               "Evelyn Waugh", "sword", "honour", "café", "中国", "naïve", "event", "click"]
+_JSON_ESCAPED = ['a\\"b', 'line\\nbreak', 'tab\\there', 'back\\\\slash', 'sl\\/ash',
+                 '\\u00e9t\\u00e9', '\\u4e2d\\u6587', 'q\\u0041z', 'bell\\b\\f\\r']
+_JSON_FLOATS = ["12.5", "-0.375", "1.25e-3", "6.02E+7", "-3.25E2", "0.1", "-0.0", "1e400",
+                "99.99", "2.5e10", "7.0", "-1.5e-7", "0.0", "100.0"]
+_JSON_INTS = ["0", "-0", "7", "-42", "123456", "1700000000123", "-9"]
+
+
+def _json_str(rng):
+    """A string token: plain, escaped or \\u-escaped text, single quotes at times."""
+    r = rng.random()
+    body = (rng.choice(_JSON_ESCAPED) if r < 0.25 else rng.choice(_JSON_WORDS)
+            + ("" if rng.random() < 0.5 else f" {rng.randrange(1000)}"))
+    if rng.random() < 0.15 and '\\"' not in body:
+        return "'" + body.replace("'", "") + "'"
+    return '"' + body + '"'
+
+
+def _json_scalar(rng):
+    r = rng.random()
+    if r < 0.35:
+        return _json_str(rng)
+    if r < 0.6:
+        return rng.choice(_JSON_FLOATS)
+    if r < 0.85:
+        return rng.choice(_JSON_INTS)
+    return rng.choice(["true", "false", "null"])
+
+
+def _json_value(rng, depth):
+    """A nested value: objects and arrays of objects down to ``depth``."""
+    if depth <= 0 or rng.random() < 0.35:
+        return _json_scalar(rng)
+    if rng.random() < 0.5:
+        return "[" + ",".join(_json_value(rng, depth - 1)
+                              for _ in range(rng.randrange(1, 4))) + "]"
+    return "{" + ",".join(f'"m{i}":' + _json_value(rng, depth - 1)
+                          for i in range(rng.randrange(1, 4))) + "}"
+
+
+def _json_doc(rng, target):
+    """One Spark-style event document of about ``target`` bytes, nesting
+    depth 1-6 (store/fruit/book as in the JSONPath examples)."""
+    depth = min(6, max(1, target.bit_length() - 5 + rng.randrange(-1, 2)))
+    parts = [f'"k0":{_json_scalar(rng)}']
+    if rng.random() < (0.8 if target > 100 else 0.3):
+        parts.append('"user":{"name":' + _json_str(rng) + f',"age":{rng.randrange(90)}'
+                     + f',"score":{rng.choice(_JSON_FLOATS)}}}')
+    if depth >= 2 and rng.random() < 0.85:
+        fruit = ",".join('{"weight":' + rng.choice(_JSON_FLOATS + _JSON_INTS)
+                         + ',"type":' + _json_str(rng) + "}"
+                         for _ in range(rng.randrange(0, 1 + target // 120)))
+        store = [f'"fruit":[{fruit}]']
+        if rng.random() < 0.7:
+            store.append('"book":' + _json_value(rng, depth - 2)
+                         if rng.random() < 0.5 else
+                         '"book":[{"author":' + _json_str(rng) + ',"price":'
+                         + rng.choice(_JSON_FLOATS) + ',"meta":' + _json_value(rng, depth - 2)
+                         + "}]")
+        if rng.random() < 0.5:
+            store.append('"bicycle":{"color":' + _json_str(rng) + ',"price":'
+                         + rng.choice(_JSON_FLOATS) + "}")
+        parts.append('"store":{' + ",".join(store) + "}")
+    if rng.random() < 0.6:
+        parts.append('"tags":[' + ",".join(_json_str(rng) for _ in range(rng.randrange(0, 4)))
+                     + "]")
+    for i in range(1, rng.randrange(1, 2 + target // 200)):
+        parts.append(f'"k{i}":' + _json_value(rng, depth - 1))
+    rng.shuffle(parts)
+    doc = "{" + ",".join(parts) + "}"
+    if len(doc.encode()) < target:
+        doc = doc[:-1] + ',"pad":"' + "x" * (target - len(doc.encode()) - 9) + '"}'
+    if rng.random() < 0.05:  # a root array of events
+        doc = "[" + doc + "," + doc + "]"
+    return doc
+
+
+def _cut(d: bytes, rng) -> bytes:
+    """``d`` cut short at a character boundary (a malformed document)."""
+    k = rng.randrange(min(32, len(d) - 1), len(d))
+    while k > 1 and 0x80 <= d[k] < 0xC0:
+        k -= 1
+    return d[:k]
+
+
+def json_pool(seed=JSON_SEED):
+    """The documents (bytes, at most 1000 B each) and their malformed flags,
+    drawn from a numpy seed; a malformed document is a valid one cut short."""
+    nrng = np.random.default_rng(seed)
+    rng = random.Random(int(nrng.integers(1 << 62)))
+    targets = np.clip(nrng.lognormal(np.log(150.0), 0.6, JSON_POOL), 24, 980).astype(int)
+    docs, bad = [], nrng.random(JSON_POOL) < JSON_BAD
+    for i, t in enumerate(targets):
+        d = _json_doc(rng, int(t)).encode()
+        while len(d) > 1000 or len(d) > 2 * t + 64:
+            d = _json_doc(rng, int(t)).encode()
+        if bad[i]:
+            d = _cut(d, rng)
+        docs.append(d)
+    return docs, bad
+
+
+def json_batch(device, n=None, seed=JSON_SEED):
+    """The JSON phase's event column: row r is pool document ``pick[r]`` with
+    ``"id":r`` spliced in first when it is an object (laid out by plain torch
+    on ``device``, 2**18 rows at a time), 10% null rows, and the column with
+    the malformed rows nulled (from_json's input: it raises on any malformed
+    non-null row)."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    n = N_JSON if n is None else n
+    docs, bad_doc = json_pool(seed)
+    nrng = np.random.default_rng(seed + 1)
+    pick = nrng.integers(0, JSON_POOL, n)
+    valid = nrng.random(n) >= JSON_NULL
+    plen = np.array([len(d) for d in docs], np.int64)
+    is_obj = np.array([d[:1] == b"{" for d in docs])
+    pool = np.zeros((JSON_POOL, 1024), np.uint8)
+    for i, d in enumerate(docs):
+        pool[i, :len(d)] = np.frombuffer(d, np.uint8)
+    ids = np.arange(n, dtype=np.int64)
+    ndig = np.maximum(1, np.floor(np.log10(np.maximum(ids, 1))).astype(np.int64) + 1)
+    obj = is_obj[pick]
+    pre = np.where(obj, 7 + ndig, 0)  # '{"id":' + digits + ','
+    lens = np.where(obj, pre + plen[pick] - 1, plen[pick])
+    pool_t = torch.from_numpy(pool).to(device)
+    width = 1040
+    chunks = []
+    lane = torch.arange(width, device=device)[None, :]
+    head = torch.tensor(list(b'{"id":'), dtype=torch.uint8, device=device)
+    for r0 in range(0, n, 1 << 18):
+        r1 = min(n, r0 + (1 << 18))
+        pk = torch.from_numpy(pick[r0:r1]).to(device)
+        pr = torch.from_numpy(pre[r0:r1]).to(device)[:, None]
+        nd = torch.from_numpy(ndig[r0:r1]).to(device)[:, None]
+        rid = torch.arange(r0, r1, device=device)[:, None]
+        # body: the document without its '{' after the prefix (or whole)
+        skip = (pr > 0).to(torch.int64)
+        src = torch.clamp(lane - pr + skip, 0, 1023)
+        m = torch.gather(pool_t[pk], 1, src)
+        m = torch.where(lane >= pr, m, 0)
+        # prefix: '{"id":', the id's digits (most significant first), ','
+        dpos = lane - 6
+        p10 = torch.pow(10, torch.clamp(nd - 1 - dpos, 0, 18).to(torch.float64)).to(torch.int64)
+        digit = (torch.div(rid, p10, rounding_mode="floor") % 10 + 48).to(torch.uint8)
+        m = torch.where((lane < 6) & (pr > 0), head[torch.clamp(lane, max=5)], m)
+        m = torch.where((dpos >= 0) & (dpos < nd) & (pr > 0), digit, m)
+        m = torch.where((lane == pr - 1) & (pr > 0), ord(","), m)
+        chunks.append(c.strings_from_padded(m.to(torch.uint8),
+                                            torch.from_numpy(lens[r0:r1]).to(device)))
+    offs = [torch.zeros(1, dtype=torch.int64, device=device)]
+    base = 0
+    for ch in chunks:
+        offs.append(ch.offsets[1:].to(torch.int64) + base)
+        base += int(ch.offsets[-1])
+    chars = torch.cat([ch.chars for ch in chunks])
+    offsets = torch.cat(offs).to(torch.int32)
+    bad_row = bad_doc[pick]
+    valid_t = torch.from_numpy(valid).to(device)
+    col = c.StringColumn(chars, offsets, valid_t)
+    fj_col = c.StringColumn(chars, offsets, torch.from_numpy(valid & ~bad_row).to(device))
+    return {"col": col, "fj_col": fj_col, "lens": lens, "valid": valid, "bad": bad_row}
+
+
+def _json_calls(b):
+    """The phase's three calls: 8 paths over one tokenization, one single
+    path, and from_json over the column with its malformed rows nulled."""
+    from spark_rapids_jni_tpu_torch.ops import (
+        from_json,
+        get_json_object,
+        get_json_object_multiple_paths,
+    )
+
+    return {"multi_paths": lambda col=b["col"]: get_json_object_multiple_paths(col, JSON_PATHS),
+            "single_path": lambda col=b["col"]: [get_json_object(col, JSON_SINGLE)],
+            "from_json": lambda col=b["fj_col"]: [from_json(col)]}
+
+
+def json_path(b):
+    """Every JSON call once on the card (the device arm under "auto") with
+    the counters at 0: plain torch, no hash kernel may launch.  Returns the
+    counts, the outputs and get_json_object's phase times of each call."""
+    import importlib
+
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    gjo = importlib.import_module("spark_rapids_jni_tpu_torch.ops.get_json_object")
+    calls = _json_calls(b)
+    torch.cuda.synchronize()
+    hash_cuda.reset_launches()
+    outs, phases = {}, {}
+    for name, call in calls.items():
+        gjo.reset_phase_times()
+        outs[name] = call()
+        torch.cuda.synchronize()
+        if name != "from_json":  # get_json_object's phase timers
+            phases[name] = gjo.phase_times()
+    counts = dict(hash_cuda.launches)
+    print(json.dumps({"json_launches": counts}))
+    if any(counts.values()):
+        raise AssertionError(f"the JSON path launched hash kernels: {counts}")
+    return counts, outs, phases
+
+
+def _cpu_strings(col):
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    return c.StringColumn(col.chars.cpu(), col.offsets.cpu(),
+                          None if col.validity is None else col.validity.cpu())
+
+
+def _head_any(col, n):
+    """The first ``n`` rows of a string or LIST<STRUCT<STRING, STRING>> column."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    if hasattr(col, "chars"):
+        return _head(col, n)
+    offs = col.offsets[:n + 1]
+    m = int(offs[-1])
+    kids = tuple(_head(k, m) for k in col.child.children)
+    return c.ListColumn(offs, c.StructColumn(kids, None),
+                        None if col.validity is None else col.validity[:n])
+
+
+def _same_column(what, got, want):
+    """Bit-exact equality of two string or list-of-struct columns: offsets,
+    chars and validity (a null mask of all True equals no mask)."""
+    if hasattr(want, "chars"):
+        pairs = [("offsets", got.offsets, want.offsets), ("chars", got.chars, want.chars)]
+    else:
+        pairs = [("offsets", got.offsets, want.offsets)]
+        for i, (g, w) in enumerate(zip(got.child.children, want.child.children)):
+            _same_column(f"{what} child {i}", g, w)
+    pairs.append(("validity", got.is_valid(), want.is_valid()))
+    for part, g, w in pairs:
+        if g.shape != w.shape or not torch.equal(g.cpu(), w.cpu()):
+            raise AssertionError(f"{what}: {part} differ")
+
+
+def _json_oracle():
+    """tests/json_oracle.py, loaded by path (it imports neither package)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "json_oracle.py"
+    spec = importlib.util.spec_from_file_location("json_oracle", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _expected_bad_row(b) -> int:
+    """The row from_json names for the whole column: the first malformed
+    non-null row of the narrowest length class that holds one."""
+    lens = np.maximum(b["lens"], 1)
+    width = np.maximum(32, 1 << np.ceil(np.log2(lens)).astype(np.int64))
+    bad = b["valid"] & b["bad"]
+    w0 = width[bad].min()
+    return int(np.nonzero(bad & (width == w0))[0][0])
+
+
+def check_json(b, outs):
+    """The device arm against the host arm on the card, the port's CPU run
+    and the sequential oracle, and from_json's raise on the whole column."""
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch.ops import JsonParsingException, from_json, parse_path
+
+    checks = {}
+    t0 = time.perf_counter()
+    host_b = {"col": _head(b["col"], JSON_HOST_ROWS), "fj_col": _head(b["fj_col"], JSON_HOST_ROWS)}
+    with config.override(json_device_render=False):
+        for name, call in _json_calls(host_b).items():
+            if name == "from_json":
+                continue  # one arm: held against the CPU run below
+            for i, (g, w) in enumerate(zip(outs[name], call())):
+                _same_column(f"{name}[{i}] device vs host arm", _head_any(g, JSON_HOST_ROWS), w)
+    checks["host_arm_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cpu_b = {k: _cpu_strings(_head(b[k], JSON_CPU_ROWS)) for k in ("col", "fj_col")}
+    for name, call in _json_calls(cpu_b).items():
+        for i, (g, w) in enumerate(zip(outs[name], call())):
+            _same_column(f"{name}[{i}] card vs CPU run", _head_any(g, JSON_CPU_ROWS), w)
+    checks["cpu_run_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rows = _head(b["col"], JSON_ORACLE_ROWS).to_list()
+    got = [_head(o, JSON_ORACLE_ROWS).to_list()
+           for o in outs["multi_paths"] + outs["single_path"]]
+    jo = _json_oracle()
+    nonnull = 0
+    for path, col_rows in zip(JSON_PATHS + [JSON_SINGLE], got):
+        parsed = parse_path(path)
+        want = [jo.get_json_object(r, parsed) for r in rows]
+        bad = [i for i in range(JSON_ORACLE_ROWS) if col_rows[i] != want[i]]
+        if bad:
+            raise AssertionError(f"{path}: {len(bad)} rows differ from the oracle, first "
+                                 f"{bad[0]}: {col_rows[bad[0]]!r} != {want[bad[0]]!r}")
+        nonnull += sum(w is not None for w in want)
+    checks["oracle_s"] = time.perf_counter() - t0
+    checks["oracle_nonnull_results"] = nonnull
+    checks["non_null_results"] = {
+        p: int(o.is_valid().sum()) for p, o in zip(JSON_PATHS, outs["multi_paths"])}
+
+    want_row = _expected_bad_row(b)
+    try:
+        from_json(b["col"])
+    except JsonParsingException as e:
+        if e.row != want_row:
+            raise AssertionError(f"from_json raised at row {e.row}, expected {want_row}")
+    else:
+        raise AssertionError("from_json did not raise on the malformed rows")
+    checks["from_json_bad_row"] = want_row
+    checks["rows"] = {"host_arm": JSON_HOST_ROWS, "cpu_run": JSON_CPU_ROWS,
+                      "oracle": JSON_ORACLE_ROWS}
+    return checks
+
+
+def _counted_kernels(fn) -> int:
+    """The CUDA kernels (and device copies) that ``fn`` runs, counted from the
+    profiler's raw device records (a JSON call runs hundreds of thousands:
+    building ``key_averages`` over them takes minutes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(1 for e in prof.profiler.kineto_results.events() if e.device_type() == cuda)
+
+
+def time_json(b, outs, phases, rates):
+    """Each call's time (CUDA events, median of JSON_REPS; the path's own
+    call was the warm-up) and peak memory, its phase times from the path's
+    call, the kernels the profiler sees in the call on the first
+    JSON_PROFILE_ROWS rows, and its bytes bound: the chars read once, the
+    outputs written once."""
+    prof_b = {k: _head(b[k], JSON_PROFILE_ROWS) for k in ("col", "fj_col")}
+    lines = {}
+    for name, call in _json_calls(b).items():
+        line = _timed(call, JSON_REPS, JSON_WARMUP)
+        src = b["fj_col"] if name == "from_json" else b["col"]
+        out_bytes = sum(_table_bytes([o]) if hasattr(o, "chars") else
+                        _table_bytes(list(o.child.children)) + 4 * o.offsets.numel()
+                        + (0 if o.validity is None else o.validity.numel())
+                        for o in outs[name])
+        nbytes = _table_bytes([src]) + out_bytes
+        line.update({"bytes": nbytes, **_bound(nbytes, 0, rates),
+                     "profiled_kernels": _counted_kernels(_json_calls(prof_b)[name]),
+                     "profiled_rows": JSON_PROFILE_ROWS})
+        if name in phases:
+            line["phases_s"] = phases[name]
+        lines[name] = line
+    return lines
+
+
+def json_phase(rates, device="cuda"):
+    """The JSON phase: the path with the counters at 0, the checks, the
+    times; prints the ``json`` line and returns the path's launch counts."""
+    t0 = time.perf_counter()
+    b = json_batch(device)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts, outs, phases = json_path(b)
+    checks = check_json(b, outs)
+    print(json.dumps({"json": {
+        "n": N_JSON, "chars_bytes": int(b["col"].offsets[-1]),
+        "mean_len": float(b["lens"].mean()), "null_share": float(1 - b["valid"].mean()),
+        "malformed_share": float(b["bad"].mean()), "paths": JSON_PATHS, "single": JSON_SINGLE,
+        "launches": counts, "calls": time_json(b, outs, phases, rates), "checks": checks,
+        "batch_gen_s": gen_s}}))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3619,6 +4040,13 @@ def main() -> int:
     from spark_rapids_jni_tpu_torch.models import QueryStepConfig
 
     cfg = QueryStepConfig(n_buckets=1024, bloom_bits=8_388_608, bloom_hashes=6)
+    seconds, clock = {}, [time.perf_counter()]
+
+    def lap(name):  # the seconds each phase took, printed before the kernels line
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+
     build()
     counts, keys, values, cols, step, mm, xx = main_path(cfg)
     cpu_s, hits, bits_set = check_against_cpu(cfg, keys, values, cols, step, mm, xx)
@@ -3633,6 +4061,7 @@ def main() -> int:
         "bloom_bits_set": bits_set, "spark_vector_cases": n_vectors,
         "mem_rate_Bps": rates[0], "int32_rate_ops": rates[1]}}))
     del keys, values
+    lap("build_step_hashes")
 
     t0 = time.perf_counter()
     batch = column_hash_batch("cuda")
@@ -3652,20 +4081,29 @@ def main() -> int:
         "calls": time_column_hash(batch), "cpu_s": cpu_col_s, "batch_gen_s": gen_s,
         "spark_string_vector_cases": n_string_vectors}}))
     del batch
+    lap("column_hash")
 
     import torch.distributed as dist
 
     mesh, tmp = init_single_rank()  # one NCCL group for the distributed and plans phases
     try:
         dist_counts, q97 = distributed(mesh, cfg)
+        lap("distributed")
         plan_counts, gp = plans(mesh, q97)
+        lap("plans")
         gov_counts = governed(mesh, q97, gp)
+        lap("governed")
     finally:
         dist.destroy_process_group()
         tmp.cleanup()
-    path_counts = [counts, col_counts, dist_counts, plan_counts, gov_counts, bloom(),
-                   decimal(), jcudf_rows(rates), casts(rates), order(gp)]
-    for row in rows:  # the main path is now all ten paths: their launches add up
+    path_counts = [counts, col_counts, dist_counts, plan_counts, gov_counts]
+    for name, phase in (("bloom", bloom), ("decimal", decimal),
+                        ("rows", lambda: jcudf_rows(rates)), ("casts", lambda: casts(rates)),
+                        ("order", lambda: order(gp)), ("json", lambda: json_phase(rates))):
+        path_counts.append(phase())
+        lap(name)
+    print(json.dumps({"phase_seconds": seconds}))
+    for row in rows:  # the main path is now all eleven paths: their launches add up
         row["launches"] = sum(c[row["name"]] for c in path_counts)
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))

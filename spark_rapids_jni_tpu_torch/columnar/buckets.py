@@ -108,6 +108,48 @@ def map_classes(classes: np.ndarray, n_classes: int, kernel: Callable,
     return tuple(outs)
 
 
+def count_subbuckets(counts: np.ndarray, cap: int,
+                     min_rows: int = 512) -> List[Tuple[np.ndarray, int]]:
+    """Split one padded bucket's rows into power-of-two *count* classes.
+
+    Second-axis companion to :func:`length_buckets`: a byte-width bucket
+    bounds each row's padded width, but a per-row derived count (the JSON
+    machine's token count) can still vary by orders of magnitude inside it,
+    and lockstep consumers pay the bucket-wide maximum for every row.
+    Grouping rows by ``next_pow2(counts)`` lets each class run with its own
+    capacity.
+
+    ``counts``: [n] per-row counts (``0 <= counts[i] <= cap``); ``cap``: the
+    bucket-wide capacity (class capacities never exceed it); ``min_rows``:
+    classes smaller than this merge into the next class up.  ``min_rows >=
+    n`` degenerates to one class at ``cap``.  Returns ``[(rows int64
+    ascending, class_cap), ...]`` with ascending ``class_cap``; every row
+    appears in exactly one class.  Host metadata (numpy), as in the JAX
+    package.
+    """
+    counts = np.asarray(counts)
+    n = len(counts)
+    if n == 0:
+        return []
+    cap = max(int(cap), 1)
+    c = np.maximum(counts, 1).astype(np.int64) - 1
+    for s in (1, 2, 4, 8, 16, 32):
+        c |= c >> s
+    widths = np.minimum(c + 1, cap)
+    out: List[Tuple[np.ndarray, int]] = []
+    pend: List[np.ndarray] = []
+    pend_n = 0
+    classes = sorted(set(widths.tolist()))
+    for i, w in enumerate(classes):
+        rows = np.nonzero(widths == w)[0].astype(np.int64)
+        pend.append(rows)
+        pend_n += len(rows)
+        if pend_n >= min_rows or i == len(classes) - 1:
+            out.append((np.sort(np.concatenate(pend)), int(w)))
+            pend, pend_n = [], 0
+    return out
+
+
 def padded_buckets(col: StringColumn, min_width: int = MIN_WIDTH) -> List[PaddedBucket]:
     """Split ``col`` into power-of-two-width padded buckets, ordered by
     width (an empty column gives no bucket)."""

@@ -40,6 +40,12 @@ from spark_rapids_jni_tpu_torch.ops.row_conversion import (
     convert_to_rows,
     convert_to_rows_fixed_width_optimized,
 )
+from spark_rapids_jni_tpu_torch.ops.from_json import JsonParsingException, from_json
+from spark_rapids_jni_tpu_torch.ops.get_json_object import (
+    get_json_object,
+    get_json_object_multiple_paths,
+    parse_path,
+)
 
 __all__ = [
     "DEFAULT_XXHASH64_SEED",
@@ -74,4 +80,9 @@ __all__ = [
     "convert_from_rows_fixed_width_optimized",
     "convert_to_rows",
     "convert_to_rows_fixed_width_optimized",
+    "from_json",
+    "get_json_object",
+    "get_json_object_multiple_paths",
+    "parse_path",
+    "JsonParsingException",
 ]

@@ -356,6 +356,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spark_rapids_jni_tpu_torch.models.q67, spark_rapids_jni_tpu_torch.models.q64\n"
         "import spark_rapids_jni_tpu_torch.models.tables\n"
         "import spark_rapids_jni_tpu_torch.serve, spark_rapids_jni_tpu_torch.serve.shuffle\n"
+        "from spark_rapids_jni_tpu_torch.columnar.buckets import count_subbuckets\n"
+        "import spark_rapids_jni_tpu_torch.ops.json_tokenizer\n"
+        "import spark_rapids_jni_tpu_torch.ops.json_scan\n"
+        "import spark_rapids_jni_tpu_torch.ops.json_render_device\n"
+        "import spark_rapids_jni_tpu_torch.ops.get_json_object\n"
+        "import spark_rapids_jni_tpu_torch.ops.from_json\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_mesh_ranks  # what spawned gloo ranks import\n"
         "import chip_smoke\n"
