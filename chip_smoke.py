@@ -174,10 +174,28 @@ port package beside it.  Otherwise it:
    CPU run of the first 2**14 rows and ``tests/json_oracle.py`` over the
    first 2**12, checks that ``from_json`` of the whole column raises at the
    expected row, and prints a ``json`` line (per call: time, peak memory,
-   phases, the kernels the profiler sees on 2**14 rows, bytes bound); then
-   the card's name and power limit, the ``kernels`` line (all seven
-   kernels, their launches over the eleven paths) and, last, the ``ok``
-   line.
+   phases, the kernels the profiler sees on 2**14 rows, bytes bound);
+18. drives BASELINE config 5 with the counters at 0 again: the port's NDS
+   harness ``main`` in this process, ``--sf 10 --verify --stream-chunk-rows
+   1000000 --buckets 32`` on the card: q5 and q97's facts generated in
+   chunks of 1,000,000 rows, grace-hashed to disk as JCUDF rows in 32
+   buckets, each bucket a governed run on a (1, 1) mesh over a one-rank
+   NCCL group (q97's Exchange launching ``mm_hash_long`` once a bucket, and
+   no other kernel), q3 in memory; holds q97's counts to the JAX package's
+   SF10 answers (27967534, 27967430, 21658 over 56,000,000 rows), q5 to 40
+   rows, every query to its oracle and every spill file to its removal,
+   ``mm_hash_long`` against its plain version at a bucket's shape, and
+   prints a ``config5`` line (each query's wall time and rate, the host
+   share of generating, routing, encoding, writing, reading and decoding,
+   the device share between CUDA events around each bucket's run, the
+   largest bucket, the host and device peaks); then the card's name and
+   power limit, the ``kernels`` line (all seven kernels, their launches
+   over the twelve paths) and, last, the ``ok`` line.
+
+The governed phase also holds every call's device peak over its reservation
+to the default budget's headroom factor (``mem.governed.PEAK_OVER_RESERVATION``),
+and the order phase holds float ``framed_sum`` over 2**21 rows bit for bit
+between the card and the CPU.
 
 Every check that fails raises, and the script then exits non-zero.
 """
@@ -1066,24 +1084,6 @@ DIST_LAUNCHES = {
 }
 
 
-def init_single_rank():
-    """A one-rank NCCL group on card 0 over a FileStore in a temporary
-    directory, and the (1, 1) mesh over it; returns (mesh, the directory)."""
-    import os
-    import tempfile
-
-    import torch.distributed as dist
-
-    from spark_rapids_jni_tpu_torch.parallel import make_mesh
-
-    torch.cuda.set_device(0)
-    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: bootstrap on loopback
-    tmp = tempfile.TemporaryDirectory()
-    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp.name, "store"), 1),
-                            rank=0, world_size=1)
-    return make_mesh((1, 1)), tmp
-
-
 def distributed_batch(device):
     """The distributed phase's inputs: the step's batch (make_example_batch,
     seed 0), the q97 tables at Q97_SF (generate_q97_tables, seed 42) with
@@ -1871,11 +1871,13 @@ def _governed_once(gov, budget, task_id, call):
         seconds = time.perf_counter() - t0
         splits = gov.get_and_reset_num_split_retry(task_id)
         retries = gov.get_and_reset_num_retry(task_id)
+    reserved, peak = budget.reset_peak(), torch.cuda.max_memory_allocated()
     return out, {
         "s": seconds, "splits": splits, "retries": retries,
         "executions": plan_cache.stats()["execute_calls"] - execs,
-        "reserved_peak_bytes": budget.reset_peak(), "budget_bytes": budget.limit,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "resident_bytes": resident,
+        "reserved_peak_bytes": reserved, "budget_bytes": budget.limit,
+        "peak_mem_bytes": peak, "resident_bytes": resident,
+        "peak_over_reserved": (peak - resident) / reserved,
         "launches": {k: v - before[k] for k, v in hash_cuda.launches.items() if v > before[k]}}
 
 
@@ -1920,7 +1922,10 @@ def check_governed(q97, gp, runs, answers, budgets, gov):
     tight run split (an arbiter split signal, and two or more executions of
     the plan where the runner has one: q3's columns form runs its step, not
     a plan) and each default run did not; every reservation released and no
-    thread left blocked."""
+    thread left blocked; no call's device peak above its reservation times
+    the default budget's headroom factor."""
+    from spark_rapids_jni_tpu_torch.mem import governed as governed_mod
+
     for run, outs in answers.items():
         query = run.rsplit("_", 1)[0]
         for out in outs:
@@ -1941,7 +1946,18 @@ def check_governed(q97, gp, runs, answers, budgets, gov):
     blocked = gov.arbiter.total_blocked_or_bufn()
     if any(used.values()) or blocked:
         raise AssertionError(f"governed: budget left in use {used}, blocked threads {blocked}")
-    return {"budget_used_after": used, "blocked_or_bufn_after": blocked}
+    # the card's default budget leaves this factor of headroom: no call may peak above it
+    ratios = {run: [c["peak_over_reserved"] for c in v["calls"]] for run, v in runs.items()}
+    print(json.dumps({"governed_peak_over_reserved": ratios,
+                      "factor": governed_mod.PEAK_OVER_RESERVATION}))
+    worst = max(max(r) for r in ratios.values())
+    if worst > governed_mod.PEAK_OVER_RESERVATION:
+        raise AssertionError(f"governed: a call peaked at {worst}x its reservation, above "
+                             f"the default budget's factor {governed_mod.PEAK_OVER_RESERVATION}")
+    return {"budget_used_after": used, "blocked_or_bufn_after": blocked,
+            "max_peak_over_reserved": worst,
+            "peak_factor": governed_mod.PEAK_OVER_RESERVATION,
+            "default_budget_bytes": budgets["default"].limit}
 
 
 def governed_kernel_check(q97, device="cuda"):
@@ -3525,6 +3541,35 @@ def check_order_small():
     return {"rows": ORDER_SMALL, "calls": len(cuda), "s": time.perf_counter() - t0}
 
 
+FRAMED_SUM_ROWS = 1 << 21  # rows of the float framed_sum held bit for bit, card vs CPU
+
+
+def check_framed_sum_bits(n=FRAMED_SUM_ROWS):
+    """Float running sums (``plans.window.framed_sum``) over FRAMED_SUM_ROWS
+    rows in runs of about 1,000 (seed 73: wide magnitudes, 1% -0.0), float32
+    and float64, unbounded and 64-row frames: the card's bits equal the
+    CPU's, since both add in the JAX package's (XLA:CPU's) order."""
+    from spark_rapids_jni_tpu_torch.plans.window import framed_sum
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(73)
+    starts = rng.rand(n) < 1e-3
+    starts[0] = True
+    err, calls = 0.0, 0
+    for dt, bits in ((np.float32, torch.int32), (np.float64, torch.int64)):
+        v = (rng.randn(n) * 10.0 ** rng.randint(-3, 6, n)).astype(dt)
+        v[rng.randint(0, n, n // 100)] = -0.0
+        for preceding in (None, 64):
+            cpu = framed_sum(torch.from_numpy(v), torch.from_numpy(starts), preceding)
+            card = framed_sum(torch.from_numpy(v).cuda(), torch.from_numpy(starts).cuda(),
+                              preceding)
+            err = max(err, _require_equal(f"framed_sum {np.dtype(dt).name} preceding="
+                                          f"{preceding}: card bits vs CPU bits",
+                                          card.view(bits), cpu.view(bits)))
+            calls += 1
+    return {"rows": n, "calls": calls, "max_abs_err": err, "s": time.perf_counter() - t0}
+
+
 def _resident_reduce(plan, tables):
     """The reduce executor of ``plan`` on its inputs already on the card
     (CUDA events, median of 5 after 1) with its peak memory, and the
@@ -3631,6 +3676,7 @@ def order(gp):
     checks = check_order(b, outs, wire)
     del outs
     checks["cpu_check"] = check_order_small()
+    checks["framed_sum_float_bits"] = check_framed_sum_bits()
     print(json.dumps({"order": {
         "rows": ORDER_ROWS, "items": ORDER_ITEMS, "customers": ORDER_CUSTS,
         "categories": ORDER_CATS, "brands": ORDER_BRANDS, "bands": ORDER_BANDS,
@@ -3652,7 +3698,7 @@ JSON_HOST_ROWS = 1 << 16  # rows held device arm against host arm on the card
 JSON_CPU_ROWS = 1 << 14  # rows held against the port's CPU run
 JSON_ORACLE_ROWS = 1 << 12  # rows held against tests/json_oracle.py
 JSON_PROFILE_ROWS = 1 << 14  # rows of the calls whose kernels the profiler counts
-JSON_REPS, JSON_WARMUP = 5, 0  # the warm-up is each call's own run on the path
+JSON_REPS, JSON_WARMUP = 3, 0  # the warm-up is each call's own run on the path
 JSON_PATHS = ["$.store.fruit[*].weight", "$.store.book", "$.k0", "$.store.fruit[0]", "$.*",
               "$.user.name", "$.tags[1]", "$.no_such_field"]
 JSON_SINGLE = "$.store.bicycle.price"
@@ -4032,6 +4078,163 @@ def json_phase(rates, device="cuda"):
     return counts
 
 
+# ---- BASELINE config 5: NDS q5 + q97 streamed out of core --------------------
+
+# the harness's own command line (seed 42 by default): q97's 56,000,000 fact
+# rows generated in chunks of 1,000,000, grace-hashed to disk in 32 buckets
+C5_ARGS = ["--sf", "10", "--verify", "--stream-chunk-rows", "1000000", "--buckets", "32"]
+C5_BUCKETS = 32
+C5_ROWS_IN = 56_000_000
+C5_Q97_COUNTS = [27967534, 27967430, 21658]  # store_only, catalog_only, both (SCALING_r05.jsonl)
+C5_Q5_ROWS = 40
+
+
+def _streamed_timing(streaming, spill, run, per_query, query):
+    """``run`` (a streamed runner) with its host phases (host clock), the CUDA
+    events around its buckets' device runs and its device peak recorded in
+    ``per_query[query]``."""
+    def timed(*args, **kw):
+        streaming.reset_timers()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run(*args, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        phases = {**streaming.PHASES.snapshot(), **spill.PHASES.snapshot()}
+        host = sum(phases[k] for k in ("generate", "hash", "route_encode", "write",
+                                       "read_decode"))
+        device = streaming.device_seconds()
+        per_query[query] = {"wall_s": wall, "phases_s": phases, "host_s": host,
+                            "host_share": host / wall, "device_s": device,
+                            "device_share": device / wall,
+                            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        return out
+    return timed
+
+
+def config5_path():
+    """The harness's ``main`` in this process with C5_ARGS on the card, with
+    the counters at 0 (only q97's buckets may launch a kernel: mm_hash_long,
+    once per bucket, its Exchange's placement); returns the counts, the JSON
+    line it printed, per-query timings, the first q97 bucket's host arrays,
+    the bucket runs and the spill directories."""
+    import contextlib
+    import io as _io
+    import os
+    from unittest import mock
+
+    from spark_rapids_jni_tpu_torch.io import spill
+    from spark_rapids_jni_tpu_torch.models import nds_harness, q97 as q97_mod, streaming
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    per_query, buckets, dirs = {}, [], []
+    run_q97 = q97_mod.run_distributed_q97
+    close = spill.ExternalTableShuffle.close
+
+    def bucket_run(mesh, store, catalog, **kw):
+        buckets.append((store, catalog) if not buckets else len(store[0]) + len(catalog[0]))
+        return run_q97(mesh, store, catalog, **kw)
+
+    def closed(self):
+        close(self)
+        dirs.append((self.dir, os.listdir(self.dir)))
+
+    printed = _io.StringIO()
+    torch.cuda.synchronize()
+    hash_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(q97_mod, "run_distributed_q97", bucket_run), \
+            mock.patch.object(spill.ExternalTableShuffle, "close", closed), \
+            mock.patch.object(streaming, "run_streaming_q97", _streamed_timing(
+                streaming, spill, streaming.run_streaming_q97, per_query, "q97")), \
+            mock.patch.object(streaming, "run_streaming_q5", _streamed_timing(
+                streaming, spill, streaming.run_streaming_q5, per_query, "q5")), \
+            contextlib.redirect_stdout(printed):
+        rc = nds_harness.main(C5_ARGS)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = dict(hash_cuda.launches)
+    print(json.dumps({"config5_launches": counts}))
+    if rc != 0:
+        raise AssertionError(f"nds_harness {' '.join(C5_ARGS)} exited {rc}")
+    line = json.loads(printed.getvalue().strip().splitlines()[-1])
+    return counts, line, seconds, per_query, buckets, dirs
+
+
+def check_config5(counts, line, buckets, dirs):
+    """q97's counts and rows equal the JAX package's SF10 answers, q5's 40
+    rows, every query verified by its oracle, every bucket run on the card
+    (mm_hash_long once each, no other kernel), and every spill file and
+    directory gone."""
+    import os
+
+    qs = line["queries"]
+    q97, q5 = qs["q97"], qs["q5"]
+    if q97["counts"] != C5_Q97_COUNTS:
+        raise AssertionError(f"config 5 q97 counts {q97['counts']} != {C5_Q97_COUNTS}")
+    if not q97["fact_rows"] == q97["streamed"]["rows_in"] == C5_ROWS_IN:
+        raise AssertionError(f"config 5 q97 read {q97['fact_rows']} rows, not {C5_ROWS_IN}")
+    if q5["result_rows"] != C5_Q5_ROWS:
+        raise AssertionError(f"config 5 q5 gave {q5['result_rows']} rows, not {C5_Q5_ROWS}")
+    bad = [q for q, v in qs.items() if v["verified"] is not True]
+    if bad:
+        raise AssertionError(f"config 5: {bad} not verified against their oracles")
+    runs = len(buckets)
+    want = {k: (runs if k == "mm_hash_long" else 0) for k in counts}
+    if counts != want or runs != C5_BUCKETS + q97["streamed"]["bucket_splits"]:
+        raise AssertionError(f"config 5 launched {counts} over {runs} q97 bucket runs")
+    left = [(d, names) for d, names in dirs if names or os.path.exists(d)]
+    if left:
+        raise AssertionError(f"config 5 left spill files behind: {left}")
+    return {"q97_bucket_runs": runs, "shuffles_closed": len(dirs), "spill_files_left": 0}
+
+
+def config5_kernel_check(store, catalog):
+    """mm_hash_long against its plain version at a bucket's shape: the packed
+    keys of the first q97 bucket's padded store and catalog scans."""
+    from spark_rapids_jni_tpu_torch.models.q97 import _composite_key
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+    from spark_rapids_jni_tpu_torch.parallel import quantized_rows
+
+    keys = []
+    for cust, item in (store, catalog):
+        m = quantized_rows(len(cust), 1)
+        padded = [np.concatenate([a, np.zeros(m - len(a), a.dtype)]) for a in (cust, item)]
+        keys.append(_composite_key(*(torch.from_numpy(a).cuda() for a in padded)))
+    keys = torch.cat(keys)
+    return {"n": keys.numel(), "max_abs_err": _require_equal(
+        "mm_hash_long on a config 5 q97 bucket's keys", hash_cuda.mm_hash_long_cuda(keys, 42),
+        hash_cuda.mm_hash_long_torch(keys, 42))}
+
+
+def config5():
+    """Phase 18: BASELINE config 5 through the port's harness, streamed out
+    of core at SF10; the checks, the kernel check, and a ``config5`` line
+    (each query's wall time and rate, its host and device shares, largest
+    bucket, host and device peaks; mm_hash_long's launches).  Returns the
+    path's launch counts."""
+    import shutil
+    import tempfile
+
+    counts, line, seconds, per_query, buckets, dirs = config5_path()
+    checks = check_config5(counts, line, buckets, dirs)
+    checks["kernel_check"] = config5_kernel_check(*buckets[0])
+    qs = line["queries"]
+    print(json.dumps({"config5": {
+        "args": C5_ARGS, "seconds": seconds, "launches": counts,
+        "queries": {q: {"wall_s": qs[q]["wall_s"], "Mrows_per_s": qs[q]["Mrows_per_s"],
+                        "fact_rows": qs[q]["fact_rows"], "verified": qs[q]["verified"],
+                        "peak_reserved_bytes": qs[q]["peak_reserved_bytes"],
+                        **({"streamed": qs[q]["streamed"], **per_query[q]}
+                           if q in per_query else {})}
+                    for q in qs},
+        "q97_counts": qs["q97"]["counts"], "q5_result_rows": qs["q5"]["result_rows"],
+        "tmp_free_bytes": shutil.disk_usage(tempfile.gettempdir()).free,
+        "checks": checks}}))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4083,27 +4286,24 @@ def main() -> int:
     del batch
     lap("column_hash")
 
-    import torch.distributed as dist
+    from spark_rapids_jni_tpu_torch.parallel import one_rank_mesh
 
-    mesh, tmp = init_single_rank()  # one NCCL group for the distributed and plans phases
-    try:
+    with one_rank_mesh("cuda") as mesh:  # one NCCL group for the next three phases
         dist_counts, q97 = distributed(mesh, cfg)
         lap("distributed")
         plan_counts, gp = plans(mesh, q97)
         lap("plans")
         gov_counts = governed(mesh, q97, gp)
         lap("governed")
-    finally:
-        dist.destroy_process_group()
-        tmp.cleanup()
     path_counts = [counts, col_counts, dist_counts, plan_counts, gov_counts]
     for name, phase in (("bloom", bloom), ("decimal", decimal),
                         ("rows", lambda: jcudf_rows(rates)), ("casts", lambda: casts(rates)),
-                        ("order", lambda: order(gp)), ("json", lambda: json_phase(rates))):
+                        ("order", lambda: order(gp)), ("json", lambda: json_phase(rates)),
+                        ("config5", config5)):
         path_counts.append(phase())
         lap(name)
     print(json.dumps({"phase_seconds": seconds}))
-    for row in rows:  # the main path is now all eleven paths: their launches add up
+    for row in rows:  # the main path is now all twelve paths: their launches add up
         row["launches"] = sum(c[row["name"]] for c in path_counts)
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))

@@ -280,11 +280,10 @@ def run_q97_monte_carlo(n_tasks: int = 6, budget_frac: float = 0.6,
     every task's reservation; the admission agreement of a one-rank group
     needs no collective.  Tasks on several ranks at once are not covered.
     """
-    mesh, take_down = _one_rank_mesh(device)
-    try:
+    from spark_rapids_jni_tpu_torch.parallel import one_rank_mesh
+
+    with one_rank_mesh(device) as mesh:
         return _q97_tasks(mesh, n_tasks, budget_frac, seed)
-    finally:
-        take_down()
 
 
 def _q97_tasks(mesh, n_tasks: int, budget_frac: float, seed: int) -> MonteCarloStats:
@@ -350,38 +349,6 @@ def _q97_tasks(mesh, n_tasks: int, budget_frac: float, seed: int) -> MonteCarloS
     finally:
         MemoryGovernor.shutdown()
     return stats
-
-
-def _one_rank_mesh(device: Optional[str]):
-    """A (1, 1) mesh over a one-rank group made here (a FileStore in a
-    temporary directory, no ports), and the call that takes it down."""
-    import os
-    import tempfile
-
-    import torch.distributed as dist
-
-    from spark_rapids_jni_tpu_torch import device as _device
-    from spark_rapids_jni_tpu_torch.parallel import make_mesh
-
-    if dist.is_initialized():
-        raise RuntimeError("run_q97_monte_carlo makes its own one-rank process "
-                           "group: call it with none initialised")
-    dev = _device.resolve(device)
-    tmp = tempfile.TemporaryDirectory()
-    dist.init_process_group(
-        "nccl" if dev.type == "cuda" else "gloo",
-        store=dist.FileStore(os.path.join(tmp.name, "store"), 1),
-        rank=0, world_size=1)
-
-    def down():
-        dist.destroy_process_group()
-        tmp.cleanup()
-
-    try:
-        return make_mesh((1, 1), device=dev), down
-    except BaseException:
-        down()
-        raise
 
 
 def main(argv=None) -> int:

@@ -8,8 +8,8 @@ Arrow/Spark DECIMAL representation).  Scale factor ``sf`` linearly sizes the
 fact tables; sf=0.01 ~ 1.4k fact rows total, sf=1 ~ 140k.  The generators
 draw from ``numpy.random.RandomState``, so the same seed gives the same arrays
 as the JAX package's copy.  Not a full dsdgen port, but faithful to the
-column shapes the query plans exercise.  The parquet writer for the q97
-tables stays with the IO modules, which the port has not taken over yet.
+column shapes the query plans exercise.  :func:`write_q97_parquet` writes
+the q97 tables as multi-row-group parquet (pyarrow, imported in the call).
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from typing import Dict
 import numpy as np
 
 __all__ = ["Q3Data", "Q5Data", "Q5Dims", "q5_dims", "generate_q3_data",
-           "generate_q5_data", "generate_q97_tables", "CHANNELS"]
+           "generate_q5_data", "generate_q97_tables", "write_q97_parquet",
+           "CHANNELS"]
 
 # (channel label, fact prefix, dim id prefix) for q5's three channel unions
 CHANNELS = ("store", "catalog", "web")
@@ -249,3 +250,39 @@ def generate_q97_tables(sf: float, seed: int):
     catalog = (rng.randint(1, max(2, n // 14), n).astype(np.int32),
                rng.randint(1, 18_000, n).astype(np.int32))
     return store, catalog
+
+
+def write_q97_parquet(outdir: str, sf: float = 0.05, seed: int = 42,
+                      rows_per_group: int = 65536):
+    """Write the q97 fact pair as multi-row-group parquet files.
+
+    Each file carries the two join keys plus money columns the query does
+    NOT touch -- so split planning via the footer (row-group midpoint
+    filter) and column pruning are both load-bearing when the NDS harness
+    reads these back (``nds_harness --input``).  Returns the two paths.
+    """
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    os.makedirs(outdir, exist_ok=True)
+    store, catalog = generate_q97_tables(sf, seed)
+    rng = np.random.RandomState(seed + 97)
+    paths = {}
+    for name, prefix, (cust, item) in (
+            ("store_sales", "ss", store), ("catalog_sales", "cs", catalog)):
+        n = len(cust)
+        table = pa.table({
+            f"{prefix}_customer_sk": pa.array(cust, pa.int32()),
+            f"{prefix}_item_sk": pa.array(item, pa.int32()),
+            # pruned by the q97 read schema: never materialized
+            f"{prefix}_ext_sales_price": pa.array(
+                _money(rng, n), pa.int64()),
+            f"{prefix}_net_profit": pa.array(
+                rng.rand(n) * 100.0, pa.float64()),
+        })
+        path = os.path.join(outdir, f"{name}.parquet")
+        pq.write_table(table, path, row_group_size=rows_per_group)
+        paths[name] = path
+    return paths["store_sales"], paths["catalog_sales"]

@@ -5,6 +5,7 @@ from spark_rapids_jni_tpu_torch.parallel.mesh import (
     axis_index,
     axis_size,
     make_mesh,
+    one_rank_mesh,
 )
 from spark_rapids_jni_tpu_torch.parallel.shuffle import (
     ShuffleResult,
@@ -28,6 +29,7 @@ __all__ = [
     "axis_index",
     "axis_size",
     "make_mesh",
+    "one_rank_mesh",
     "PaddedStrings",
     "ShuffleResult",
     "ShuffledTable",

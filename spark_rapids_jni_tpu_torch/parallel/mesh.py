@@ -14,8 +14,10 @@ collectives run over the groups of :func:`axis_group`.
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional, Tuple
+import tempfile
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -57,6 +59,28 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None, *,
                            f"device is cuda:{torch.cuda.current_device()}; call "
                            f"torch.cuda.set_device({local_rank}) first")
     return init_device_mesh(dev.type, (dp, mp), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+
+
+@contextlib.contextmanager
+def one_rank_mesh(device: _device.DeviceLike = None) -> Iterator[DeviceMesh]:
+    """A (1, 1) mesh over a one-rank process group made here (a FileStore in
+    a temporary directory, no ports) and taken down on exit: NCCL on the
+    card (the current CUDA device, bootstrapped on loopback), gloo on the
+    CPU.  No group may be initialised already."""
+    dev = _device.resolve(device)
+    if dist.is_initialized():
+        raise RuntimeError("one_rank_mesh makes its own one-rank process group: "
+                           "call it with none initialised")
+    if dev.type == "cuda":
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(_BACKEND[dev.type],
+                                store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            yield make_mesh((1, 1), device=dev)
+        finally:
+            dist.destroy_process_group()
 
 
 def axis_size(mesh: DeviceMesh, name: str) -> int:

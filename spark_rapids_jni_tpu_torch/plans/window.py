@@ -173,16 +173,51 @@ def dense_rank(run_start: torch.Tensor, order_change: torch.Tensor) -> torch.Ten
     return c - c[segment_start_indices(run_start)] + 1
 
 
+_SCAN_BLOCK = 16  # XLA:CPU's cumsum block width
+
+
+def _xla_cumsum(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive float cumsum of a 1-D tensor in the order XLA:CPU adds
+    ``jnp.cumsum``: a base-16 blocked scan.  The vector is zero-padded to
+    whole blocks of 16; each block is a left fold from a zero start; the
+    block totals are scanned by the same rule, recursively; each block then
+    adds its exclusive carry.  A vector of one element comes back as it is.
+    Every step is a column add, the same IEEE operation on the CPU and the
+    card, so both give XLA's bits (NaN signs aside, which XLA leaves to its
+    vector units' operand order)."""
+    n = v.shape[0]
+    if n <= 1:
+        return v.clone()
+    m = -(-n // _SCAN_BLOCK)
+    blocks = torch.zeros((m * _SCAN_BLOCK,), dtype=v.dtype, device=v.device)
+    blocks[:n] = v
+    blocks = blocks.view(m, _SCAN_BLOCK)
+    acc = torch.zeros((m,), dtype=v.dtype, device=v.device)
+    cols = []
+    for j in range(_SCAN_BLOCK):
+        acc = acc + blocks[:, j]
+        cols.append(acc)
+    sums = torch.stack(cols, dim=1)
+    if m > 1:
+        inclusive = _xla_cumsum(sums[:, -1].contiguous())
+        carry = torch.cat([torch.zeros((1,), dtype=v.dtype, device=v.device), inclusive[:-1]])
+        sums = sums + carry[:, None]
+    return sums.reshape(-1)[:n]
+
+
 def framed_sum(v: torch.Tensor, run_start: torch.Tensor,
                preceding: Optional[int] = None) -> torch.Tensor:
     """Running sum over the ROWS frame ``[i - preceding, i]`` within the run
     (``preceding=None`` = UNBOUNDED PRECEDING), via cumsum differences
     clamped at the segment start.  Exact for integer dtypes, which keep
     their width (and wrap) as ``jnp.cumsum``'s do; a bool sums as int64.
-    Float sums add in another order than XLA's scan, so they agree to
-    rounding, not bit for bit."""
+    Floats add in XLA:CPU's order (:func:`_xla_cumsum`), so they equal the
+    JAX package's bits on the CPU and on the card."""
     seg0 = segment_start_indices(run_start)
-    cs = torch.cumsum(v, dim=0, dtype=None if v.dtype == torch.bool else v.dtype)
+    if v.is_floating_point():
+        cs = _xla_cumsum(v)
+    else:
+        cs = torch.cumsum(v, dim=0, dtype=None if v.dtype == torch.bool else v.dtype)
     if preceding is None:
         lo = seg0
     else:

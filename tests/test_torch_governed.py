@@ -177,7 +177,7 @@ def test_default_budget_is_the_cards_memory(monkeypatch, fresh_default_budget):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda d: asked.append(d) or (5 << 30, 80 << 30))
-    assert mem.default_device_budget().limit == 80 << 30
+    assert mem.default_device_budget().limit == int((80 << 30) / governed.PEAK_OVER_RESERVATION)
     assert asked == [3]
 
 

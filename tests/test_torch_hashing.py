@@ -362,6 +362,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spark_rapids_jni_tpu_torch.ops.json_render_device\n"
         "import spark_rapids_jni_tpu_torch.ops.get_json_object\n"
         "import spark_rapids_jni_tpu_torch.ops.from_json\n"
+        "import spark_rapids_jni_tpu_torch.io, spark_rapids_jni_tpu_torch.io.parquet_footer\n"
+        "import spark_rapids_jni_tpu_torch.io.parquet_read, spark_rapids_jni_tpu_torch.io.spill\n"
+        "import spark_rapids_jni_tpu_torch.models.streaming\n"
+        "import spark_rapids_jni_tpu_torch.models.nds_harness\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_mesh_ranks  # what spawned gloo ranks import\n"
         "import chip_smoke\n"

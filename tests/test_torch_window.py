@@ -5,10 +5,11 @@ Inputs are made with numpy from a seed and go through both packages.  Ranks
 are compared as bits: the port carries them as int64 tensors, the JAX package
 as ``uint64``, and numpy's ``.view(np.uint64)`` makes them one type.
 Permutations, run starts, ranks and integer window sums must be equal; float
-running sums add in another order than XLA's scan, so they are held to 4
-float32 or 2**-40 float64 units of the largest partial sum (the tolerance is
-stated beside the test).  Min and max are exact in any order and are held bit
-for bit, signed zeros and NaNs included.  Splitters must be the same python
+running sums add in XLA:CPU's order (a base-16 blocked scan) and are held bit
+for bit too, at the scan's block edges, with signed zeros and infinities (a
+NaN only has to be a NaN: XLA:CPU leaves its sign to operand order).  Min and
+max are exact in any order and are held bit for bit, signed zeros and NaNs
+included.  Splitters must be the same python
 ints, and range partitions the same.
 """
 
@@ -216,11 +217,21 @@ def test_framed_sum_integers_equal_jax(dtype, preceding):
             assert got[i] == v[lo:i + 1].sum(), (i, preceding)
 
 
-# float sums: torch adds sequentially, XLA by a scan tree; both round each
-# partial sum, so they agree to a few units of the largest partial sum
-FLOAT_SUM_TOL = {np.float32: 4 * 2.0 ** -23, np.float64: 2.0 ** -40}
+def _assert_float_bits_equal(got, want):
+    """Bit for bit, NaN signs aside: XLA:CPU leaves a NaN's sign to its vector
+    units' operand order, so NaN rows only have to be NaN in both."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(_float_bits(got)[~nan], _float_bits(want)[~nan])
 
 
+def _float_bits(a):
+    return a.view(np.uint32 if a.dtype == np.float32 else np.uint64)
+
+
+# float sums add in XLA:CPU's order (a base-16 blocked scan), so they equal
+# the JAX package bit for bit
 @pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=lambda d: np.dtype(d).name)
 @pytest.mark.parametrize("preceding", [None, 0, 1, 3, 10])
 def test_framed_sum_floats_within_rounding_of_jax(dtype, preceding):
@@ -230,8 +241,52 @@ def test_framed_sum_floats_within_rounding_of_jax(dtype, preceding):
     want = np.asarray(jwin.framed_sum(jnp.asarray(v), jnp.asarray(starts), preceding))
     got = win.framed_sum(_t(v), _t(starts), preceding).numpy()
     assert got.dtype == want.dtype
-    scale = np.abs(np.cumsum(np.abs(v.astype(np.float64)))).max()
-    np.testing.assert_allclose(got, want, rtol=0, atol=FLOAT_SUM_TOL[dtype] * scale)
+    np.testing.assert_array_equal(_float_bits(got), _float_bits(want))
+
+
+SCAN_LENGTHS = [1, 2, 15, 16, 17, 255, 256, 257, 4097]
+
+
+def _scan_input(dtype, n, case):
+    """Wide-magnitude floats of length ``n``; ``case`` puts a -0.0 first and
+    at the start of a later block, or sprinkles +-inf and NaN."""
+    rng = np.random.RandomState(1000 + n)
+    v = (rng.randn(n) * 10.0 ** rng.randint(-3, 6, n)).astype(dtype)
+    if case == "neg_zero":
+        v[0] = -0.0
+        v[16 * (n // 32)] = -0.0  # a later block's first row (row 0 when n < 32)
+    elif case == "specials":
+        k = max(1, n // 7)
+        v[rng.randint(0, n, k)] = rng.choice(
+            np.array([np.inf, -np.inf, np.nan, -0.0], dtype), k)
+    return v
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+@pytest.mark.parametrize("case", ["plain", "neg_zero", "specials"])
+def test_framed_sum_float_scan_order_equals_jax(dtype, n, case):
+    """Unbounded and bounded frames over one run and over several, at the
+    block edges of XLA:CPU's scan."""
+    v = _scan_input(dtype, n, case)
+    for starts in (_starts(n, (0,)), _starts(n, sorted({0, n // 3, n // 2}))):
+        for preceding in (None, 3):
+            want = np.asarray(jwin.framed_sum(jnp.asarray(v), jnp.asarray(starts), preceding))
+            got = win.framed_sum(_t(v), _t(starts), preceding).numpy()
+            _assert_float_bits_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", FLOAT_DTYPES, ids=lambda d: np.dtype(d).name)
+def test_framed_sum_signed_zeros_as_xla(dtype):
+    """One row comes back as it is (-0.0 stays); from two rows on the fold
+    starts from a zero, so a leading -0.0 comes back as +0.0."""
+    starts1, starts2 = _starts(1, (0,)), _starts(2, (0,))
+    one = win.framed_sum(_t(np.array([-0.0], dtype)), _t(starts1)).numpy()
+    two = win.framed_sum(_t(np.array([-0.0, 1.0], dtype)), _t(starts2)).numpy()
+    assert np.signbit(one[0]) and not np.signbit(two[0])
+    for v, s in ((np.array([-0.0], dtype), starts1), (np.array([-0.0, 1.0], dtype), starts2)):
+        want = np.asarray(jwin.framed_sum(jnp.asarray(v), jnp.asarray(s)))
+        _assert_float_bits_equal(win.framed_sum(_t(v), _t(s)).numpy(), want)
 
 
 @pytest.mark.parametrize("dtype", INT_DTYPES + FLOAT_DTYPES, ids=lambda d: np.dtype(d).name)
