@@ -188,9 +188,42 @@ port package beside it.  Otherwise it:
    prints a ``config5`` line (each query's wall time and rate, the host
    share of generating, routing, encoding, writing, reading and decoding,
    the device share between CUDA events around each bucket's run, the
-   largest bucket, the host and device peaks); then the card's name and
+   largest bucket, the host and device peaks);
+19. drives the last Spark ops with the counters at 0 again (no kernel may
+   launch), at a plugin batch from seed 73: the six ``parse_uri`` entry
+   points (protocol, host, query, query with the key "id" and with a per-row
+   key column, path) and ``literal_range_pattern`` over 2**22 web-log URLs
+   (16-2,048 B, mostly under 300: http and https, userinfo, ports, queries,
+   fragments, IPv4 and IPv6 hosts, %XX escapes and UTF-8; 5% malformed, 5%
+   null); ``convert_timestamp_to_utc`` and
+   ``convert_utc_timestamp_to_timezone`` in Asia/Shanghai and Asia/Kolkata
+   on 2**26 TIMESTAMP_MICROS values over 1900-2100 (the zones' TZif files
+   from the machine, else from tests/data/tzif/); both calendar rebases on
+   2**26 TIMESTAMP_MICROS and 2**26 DATE32 values over years 1-2100;
+   ``interleave_bits`` and ``hilbert_index(10, ...)`` over three INT32
+   columns of 2**24 rows with 10% nulls; ``create_histogram_if_valid`` over
+   2**24 (FLOAT64, INT64) rows and ``percentile_from_histogram`` at 0, 0.25,
+   0.5, 0.75 and 1 over 2**20 histograms of 1-256 bins, as lists and as
+   scalars; holds every output bit for bit against the port's CPU run of
+   the first 2**18 rows (histograms), run in a spawned process while the
+   card is timed, and the six ``parse_uri`` outputs against
+   tests/uri_oracle.py on 2**14 rows; prints an ``ops_tail`` line (per
+   call: time, peak memory, bytes bound);
+20. profiles, with the port's ``Profiler`` and its ``torch.profiler``
+   device trace, a governed q97 at SF10 on the governed phase's tables and
+   an 8-path ``get_json_object`` over 2**14 rows of phase 17's column, each
+   in a host range of its own; converts the capture with ``obs.convert``
+   into one merged chrome trace and checks that the SRTP stream parses,
+   that the seam ranges, the reservation counters and the flight
+   recorder's STATE records are there, that ``mm_hash_long`` is among the
+   device events as often as its counter says, and that every device event
+   lies inside its call's host range; prints each call's device busy share
+   (the union of its kernels over its wall); then runs two governed q97
+   calls under the seeded ``pressure_storm_config``, whose answers must
+   equal the unfaulted one and whose injector decisions must be equal; and
+   prints an ``obs`` line; then the phases' seconds, the card's name and
    power limit, the ``kernels`` line (all seven kernels, their launches
-   over the twelve paths) and, last, the ``ok`` line.
+   over the fourteen paths) and, last, the ``ok`` line.
 
 The governed phase also holds every call's device peak over its reservation
 to the default budget's headroom factor (``mem.governed.PEAK_OVER_RESERVATION``),
@@ -3698,7 +3731,7 @@ JSON_HOST_ROWS = 1 << 16  # rows held device arm against host arm on the card
 JSON_CPU_ROWS = 1 << 14  # rows held against the port's CPU run
 JSON_ORACLE_ROWS = 1 << 12  # rows held against tests/json_oracle.py
 JSON_PROFILE_ROWS = 1 << 14  # rows of the calls whose kernels the profiler counts
-JSON_REPS, JSON_WARMUP = 3, 0  # the warm-up is each call's own run on the path
+JSON_REPS, JSON_WARMUP = 1, 0  # the warm-up is each call's own run on the path
 JSON_PATHS = ["$.store.fruit[*].weight", "$.store.book", "$.k0", "$.store.fruit[0]", "$.*",
               "$.user.name", "$.tags[1]", "$.no_such_field"]
 JSON_SINGLE = "$.store.bicycle.price"
@@ -3908,48 +3941,73 @@ def json_path(b):
     return counts, outs, phases
 
 
-def _cpu_strings(col):
+def _cpu_copy(col):
+    """A column of any kind (lists and structs recursively, or a list of
+    columns) copied to the CPU."""
+    import dataclasses as dc
+
     from spark_rapids_jni_tpu_torch import columnar as c
 
-    return c.StringColumn(col.chars.cpu(), col.offsets.cpu(),
-                          None if col.validity is None else col.validity.cpu())
+    if isinstance(col, list):
+        return [_cpu_copy(x) for x in col]
+    valid = None if col.validity is None else col.validity.cpu()
+    if isinstance(col, c.ListColumn):
+        return c.ListColumn(col.offsets.cpu(), _cpu_copy(col.child), valid)
+    if isinstance(col, c.StructColumn):
+        return c.StructColumn(tuple(_cpu_copy(k) for k in col.children), valid)
+    if isinstance(col, c.StringColumn):
+        return c.StringColumn(col.chars.cpu(), col.offsets.cpu(), valid)
+    return dc.replace(col, data=col.data.cpu(), validity=valid)
 
 
 def _head_any(col, n):
-    """The first ``n`` rows of a string or LIST<STRUCT<STRING, STRING>> column."""
+    """The first ``n`` rows of a column of any kind (a list keeps its rows'
+    child rows; a struct, each child's first ``n``), or of each column of a
+    list."""
     from spark_rapids_jni_tpu_torch import columnar as c
 
-    if hasattr(col, "chars"):
-        return _head(col, n)
-    offs = col.offsets[:n + 1]
-    m = int(offs[-1])
-    kids = tuple(_head(k, m) for k in col.child.children)
-    return c.ListColumn(offs, c.StructColumn(kids, None),
-                        None if col.validity is None else col.validity[:n])
+    if isinstance(col, list):
+        return [_head_any(x, n) for x in col]
+    if isinstance(col, c.ListColumn):
+        offs = col.offsets[:n + 1]
+        return c.ListColumn(offs, _head_any(col.child, int(offs[-1])),
+                            None if col.validity is None else col.validity[:n])
+    if isinstance(col, c.StructColumn):
+        return c.StructColumn(tuple(_head_any(k, n) for k in col.children),
+                              None if col.validity is None else col.validity[:n])
+    return _head(col, n)
 
 
 def _same_column(what, got, want):
-    """Bit-exact equality of two string or list-of-struct columns: offsets,
-    chars and validity (a null mask of all True equals no mask)."""
-    if hasattr(want, "chars"):
+    """Bit-exact equality of two columns of any kind: values, offsets, chars
+    and validity (a null mask of all True equals no mask)."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    if isinstance(want, c.StringColumn):
         pairs = [("offsets", got.offsets, want.offsets), ("chars", got.chars, want.chars)]
-    else:
+    elif isinstance(want, c.ListColumn):
         pairs = [("offsets", got.offsets, want.offsets)]
-        for i, (g, w) in enumerate(zip(got.child.children, want.child.children)):
+        _same_column(f"{what} child", got.child, want.child)
+    elif isinstance(want, c.StructColumn):
+        pairs = []
+        for i, (g, w) in enumerate(zip(got.children, want.children)):
             _same_column(f"{what} child {i}", g, w)
+    else:
+        pairs = [("data", got.data, want.data)]
     pairs.append(("validity", got.is_valid(), want.is_valid()))
     for part, g, w in pairs:
         if g.shape != w.shape or not torch.equal(g.cpu(), w.cpu()):
             raise AssertionError(f"{what}: {part} differ")
 
 
-def _json_oracle():
-    """tests/json_oracle.py, loaded by path (it imports neither package)."""
+def _tests_module(name):
+    """tests/<name>.py, loaded by path (an oracle that imports neither
+    package)."""
     import importlib.util
     import pathlib
 
-    path = pathlib.Path(__file__).resolve().parent / "tests" / "json_oracle.py"
-    spec = importlib.util.spec_from_file_location("json_oracle", path)
+    path = pathlib.Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3983,7 +4041,7 @@ def check_json(b, outs):
     checks["host_arm_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    cpu_b = {k: _cpu_strings(_head(b[k], JSON_CPU_ROWS)) for k in ("col", "fj_col")}
+    cpu_b = {k: _cpu_copy(_head(b[k], JSON_CPU_ROWS)) for k in ("col", "fj_col")}
     for name, call in _json_calls(cpu_b).items():
         for i, (g, w) in enumerate(zip(outs[name], call())):
             _same_column(f"{name}[{i}] card vs CPU run", _head_any(g, JSON_CPU_ROWS), w)
@@ -3993,7 +4051,7 @@ def check_json(b, outs):
     rows = _head(b["col"], JSON_ORACLE_ROWS).to_list()
     got = [_head(o, JSON_ORACLE_ROWS).to_list()
            for o in outs["multi_paths"] + outs["single_path"]]
-    jo = _json_oracle()
+    jo = _tests_module("json_oracle")
     nonnull = 0
     for path, col_rows in zip(JSON_PATHS + [JSON_SINGLE], got):
         parsed = parse_path(path)
@@ -4062,7 +4120,10 @@ def time_json(b, outs, phases, rates):
 
 def json_phase(rates, device="cuda"):
     """The JSON phase: the path with the counters at 0, the checks, the
-    times; prints the ``json`` line and returns the path's launch counts."""
+    times; prints the ``json`` line and returns the path's launch counts and
+    a copy of the column's first JSON_PROFILE_ROWS rows (phase 20's input)."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
     t0 = time.perf_counter()
     b = json_batch(device)
     torch.cuda.synchronize()
@@ -4075,7 +4136,9 @@ def json_phase(rates, device="cuda"):
         "malformed_share": float(b["bad"].mean()), "paths": JSON_PATHS, "single": JSON_SINGLE,
         "launches": counts, "calls": time_json(b, outs, phases, rates), "checks": checks,
         "batch_gen_s": gen_s}}))
-    return counts
+    head = _head(b["col"], JSON_PROFILE_ROWS)  # phase 20's JSON input, copied out
+    return counts, c.StringColumn(head.chars.clone(), head.offsets.clone(),
+                                  head.validity.clone())
 
 
 # ---- BASELINE config 5: NDS q5 + q97 streamed out of core --------------------
@@ -4235,6 +4298,697 @@ def config5():
     return counts
 
 
+# ---- phase 19: the last Spark ops at a plugin batch --------------------------
+
+TAIL_SEED = 73
+N_URL = 1 << 22  # web-log URLs: 16-2,048 B, mostly under 300
+N_TS = 1 << 26  # TIMESTAMP_MICROS values of the zone conversions (1900-2100)
+N_REBASE = 1 << 26  # TIMESTAMP_MICROS and DATE32 values of the rebase (years 1-2100)
+N_ZORDER = 1 << 24  # rows of the three INT32 z-order columns
+N_HIST_ROWS = 1 << 24  # (FLOAT64 value, INT64 count) rows of the histograms
+N_HIST = 1 << 20  # histograms over them, 1-256 bins (geometric lengths)
+TAIL_CPU_ROWS = 1 << 18  # rows (histograms) of each call held against the CPU run
+# the CPU run's processes and the threads of each, beside the card's work
+# (parse_uri's small ops scale with processes, not with threads)
+TAIL_CPU_PROCS, TAIL_CPU_THREADS = 3, 2
+URL_ORACLE_ROWS = 1 << 14  # URLs held against tests/uri_oracle.py
+TAIL_PCTS = [0.0, 0.25, 0.5, 0.75, 1.0]
+TAIL_REPS, TAIL_WARMUP = 2, 0  # each call timed after the path's own call
+TAIL_ZONES = ["Asia/Shanghai", "Asia/Kolkata"]
+URL_KEY = "id"  # parse_uri_query_literal's key
+URL_KEYS = ["id", "q", "utm_source", "page", "", "zz"]  # the key column's keys
+URL_RANGE = ("id=", 3, 48, 57)  # literal_range_pattern: "id=" and three digits
+URL_NULL, URL_BAD = 0.05, 0.05
+_URL_WORDS = ["shop", "news", "mail", "api", "cdn", "static", "img", "data", "blog", "search",
+              "nvidia", "spark", "rapids", "docs", "login", "cart", "video", "maps", "item",
+              "product", "category", "view", "index.html", "a.php", "v2", "2024"]
+_URL_UTF8 = ["é", "ü", "中文", "日本語", "русский", "€", "ñ", "ß"]
+_URL_TLDS = ["com", "org", "net", "io", "co.uk", "de", "cn", "in", "com.br"]
+_URL_BAD = [" ", "|", "^", "%zz", "%4", "[", "\\", "`", "{", "\"", "<", "%"]
+
+
+def _url_segment(rng):
+    r = rng.random()
+    if r < 0.55:
+        return rng.choice(_URL_WORDS)
+    if r < 0.75:
+        return str(rng.randrange(10 ** rng.randint(1, 8)))
+    if r < 0.9:
+        return rng.choice(_URL_WORDS) + "%" + format(rng.randrange(256), "02X") + \
+            rng.choice(_URL_WORDS)
+    return rng.choice(_URL_UTF8) + rng.choice(_URL_WORDS)
+
+
+def _url_prefix(rng):
+    scheme = "https" if rng.random() < 0.6 else "http"
+    ui = (rng.choice(["user", "admin", "u:p", "john.doe", "a%20b", "me:s3cr%21t"]) + "@"
+          if rng.random() < 0.1 else "")
+    r = rng.random()
+    if r < 0.1:
+        host = ".".join(str(rng.randrange(1, 255)) for _ in range(4))
+    elif r < 0.15:
+        groups = [format(rng.randrange(65536), "x") for _ in range(8)]
+        host = "[" + (":".join(groups) if rng.random() < 0.5
+                      else ":".join(groups[:3]) + "::" + groups[7]) + "]"
+    else:
+        labels = [rng.choice(["www", "m", "api", "cdn", "shop"])] if rng.random() < 0.7 else []
+        labels += [rng.choice(_URL_WORDS[:18]) + (str(rng.randrange(100))
+                                                  if rng.random() < 0.3 else "")]
+        host = ".".join(labels) + "." + rng.choice(_URL_TLDS)
+    port = f":{rng.choice([80, 443, 8080, 8443, 3000])}" if rng.random() < 0.15 else ""
+    return f"{scheme}://{ui}{host}{port}"
+
+
+def _url_path(rng):
+    if rng.random() < 0.01:  # the long tail: 1,000-1,850 B
+        target, segs = rng.randint(1000, 1850), []
+        while sum(len(s.encode()) + 1 for s in segs) < target:
+            segs.append(_url_segment(rng))
+        return "/" + "/".join(segs)
+    n = min(int(rng.expovariate(1 / 4)) + 1, 14)
+    return "/" + "/".join(_url_segment(rng) for _ in range(n)) + \
+        ("/" if rng.random() < 0.1 else "")
+
+
+def _url_query(rng):
+    if rng.random() < 0.45:
+        return ""
+    keys = ["id", "q", "utm_source", "page", "ref", "lang", "sort", "s", "utm_medium"]
+    params = []
+    for _ in range(rng.randint(1, 8)):
+        k = rng.choice(keys)
+        v = (str(rng.randrange(10 ** rng.randint(1, 6))) if rng.random() < 0.5
+             else _url_segment(rng))
+        params.append(f"{k}={v}")
+    return "?" + "&".join(params)
+
+
+def url_pools(seed=TAIL_SEED):
+    """Byte-string pools the URL rows are drawn from (a numpy seed drives a
+    python RNG): scheme, userinfo, host (domains, IPv4, IPv6) and port
+    prefixes; paths (%XX escapes, UTF-8, 1% of 1,000-1,850 B); queries;
+    fragments; and malformed URLs (a valid one with a bad byte spliced in)."""
+    rng = random.Random(int(np.random.default_rng(seed).integers(1 << 62)))
+    prefixes = [_url_prefix(rng).encode() for _ in range(4096)]
+    paths = [_url_path(rng).encode() for _ in range(16384)]
+    queries = [_url_query(rng).encode() for _ in range(8192)]
+    frags = [(("#" + rng.choice(_URL_WORDS)) if rng.random() < 0.15 else "").encode()
+             for _ in range(256)]
+    bad = []
+    for _ in range(1024):
+        u = _url_prefix(rng) + _url_path(rng) + _url_query(rng)
+        i = rng.randrange(8, len(u))
+        bad.append((u[:i] + rng.choice(_URL_BAD) + u[i:]).encode())
+    return {"prefix": prefixes, "path": paths, "query": queries, "frag": frags, "bad": bad}
+
+
+def _pool_tensors(items, device):
+    lens = np.array([len(b) for b in items], np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    chars = np.frombuffer(b"".join(items), np.uint8).copy()
+    return (torch.from_numpy(chars).to(device), torch.from_numpy(offs).to(device),
+            torch.from_numpy(lens).to(device))
+
+
+def _concat_pools(parts, n, device):
+    """(chars uint8, offsets int32) of ``n`` rows, row r the concatenation
+    over ``parts`` of pool item ``pick[r]`` (none where ``pick`` is -1);
+    ``parts`` are ``(pool chars, item starts, item lengths, pick)``."""
+    lens = torch.zeros(n, dtype=torch.int64, device=device)
+    plens = []
+    for _, _, ilen, pick in parts:
+        ln = torch.where(pick >= 0, ilen[pick.clamp(min=0)], 0)
+        plens.append(ln)
+        lens += ln
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    offsets[1:] = torch.cumsum(lens, 0)
+    out = torch.empty(int(offsets[-1]), dtype=torch.uint8, device=device)
+    cursor = offsets[:-1].clone()
+    rows = torch.arange(n, device=device)
+    for (chars, starts, _, pick), ln in zip(parts, plens):
+        total = int(ln.sum())
+        if total:
+            row = torch.repeat_interleave(rows, ln)
+            within = torch.arange(total, device=device) - (torch.cumsum(ln, 0) - ln)[row]
+            out[cursor[row] + within] = chars[starts[pick.clamp(min=0)][row] + within]
+        cursor += ln
+    return out, offsets.to(torch.int32)
+
+
+def url_batch(device, n=None, seed=TAIL_SEED):
+    """The URL column (pools joined on ``device``), 5% malformed and 5% null
+    rows, and the per-row key column (5% null)."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    n = N_URL if n is None else n
+    pools = {k: _pool_tensors(v, device) for k, v in url_pools(seed).items()}
+    nrng = np.random.default_rng(seed + 1)
+    bad = nrng.random(n) < URL_BAD
+    picks = {k: np.where(bad, -1, nrng.integers(0, pools[k][2].numel(), n))
+             for k in ("prefix", "path", "query", "frag")}
+    picks["bad"] = np.where(bad, nrng.integers(0, pools["bad"][2].numel(), n), -1)
+    valid = nrng.random(n) >= URL_NULL
+    parts = [(*pools[k], torch.from_numpy(picks[k]).to(device))
+             for k in ("bad", "prefix", "path", "query", "frag")]
+    chars, offsets = _concat_pools(parts, n, device)
+    col = c.StringColumn(chars, offsets, torch.from_numpy(valid).to(device))
+    keys = c.strings_from_arrays(*_key_arrays(nrng, n), device=device)
+    lens = (offsets[1:] - offsets[:-1]).cpu().numpy()
+    return {"col": col, "keys": keys, "lens": lens, "bad": bad, "valid": valid}
+
+
+def _key_arrays(nrng, n):
+    raw = [k.encode() for k in URL_KEYS]
+    pick = nrng.integers(0, len(raw), n)
+    klen = np.array([len(r) for r in raw], np.int32)[pick]
+    offsets = np.concatenate([[0], np.cumsum(klen)]).astype(np.int32)
+    pool = np.frombuffer(b"".join(raw), np.uint8)
+    starts = np.concatenate([[0], np.cumsum([len(r) for r in raw])[:-1]])[pick]
+    idx = np.repeat(starts - offsets[:-1], klen) + np.arange(int(offsets[-1]))
+    return pool[idx], offsets, nrng.random(n) >= URL_NULL
+
+
+def _tz_source():
+    """Where the zones' TZif files are read: the machine's (zoneinfo.TZPATH,
+    then the tzdata wheel) or, when it has neither, tests/data/tzif/ (put
+    first on TZPATH)."""
+    import pathlib
+    import zoneinfo
+
+    from spark_rapids_jni_tpu_torch.utils import tzif
+
+    found = {z: tzif._find_tzfile(z) for z in TAIL_ZONES}
+    if all(found.values()):
+        return found
+    committed = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "tzif"
+    zoneinfo.reset_tzpath(to=[str(committed)])
+    found = {z: tzif._find_tzfile(z) for z in TAIL_ZONES}
+    if not all(found.values()):
+        raise AssertionError(f"no TZif data for {TAIL_ZONES}: {found}")
+    return found
+
+
+def tail_batch(device, sizes=None):
+    """Phase 19's inputs on ``device`` from seed 73: the URL column and its
+    keys, TIMESTAMP_MICROS over 1900-2100, TIMESTAMP_MICROS and DATE32 over
+    years 1-2100, three INT32 columns with 10% nulls, and (FLOAT64 value,
+    INT64 count) rows with their histogram lengths."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    s = {"url": N_URL, "ts": N_TS, "rebase": N_REBASE, "zorder": N_ZORDER,
+         "hist_rows": N_HIST_ROWS, "hist": N_HIST, **(sizes or {})}
+    b = url_batch(device, s["url"])
+    rng = np.random.default_rng(TAIL_SEED + 2)
+    day_us = 86_400_000_000
+    d1900, d2100, d1 = -25567 * day_us, 47482 * day_us, -719162
+    b["ts"] = c.Column(torch.from_numpy(rng.integers(d1900, d2100, s["ts"])).to(device), None,
+                       c.TIMESTAMP_MICROS)
+    b["micros"] = c.Column(torch.from_numpy(rng.integers(d1 * day_us, d2100, s["rebase"]))
+                           .to(device), None, c.TIMESTAMP_MICROS)
+    b["days"] = c.Column(torch.from_numpy(rng.integers(d1, 47482, s["rebase"]).astype(np.int32))
+                         .to(device), None, c.DATE32)
+    b["z"] = [c.Column(torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, s["zorder"])
+                                        .astype(np.int32)).to(device),
+                       torch.from_numpy(rng.random(s["zorder"]) >= 0.1).to(device), c.INT32)
+              for _ in range(3)]
+    vals = np.round(rng.lognormal(3.0, 1.0, s["hist_rows"]), 1)  # duplicates within a list
+    b["hvals"] = c.Column(torch.from_numpy(vals.view(np.int64)).to(device),
+                          torch.from_numpy(rng.random(s["hist_rows"]) >= 0.05).to(device),
+                          c.FLOAT64)
+    b["hcounts"] = c.Column(torch.from_numpy(rng.integers(0, 20, s["hist_rows"])).to(device),
+                            None, c.INT64)
+    lens = np.clip(rng.geometric(s["hist"] / s["hist_rows"], s["hist"]), 1, 256)
+    diff = s["hist_rows"] - int(lens.sum())  # move the total to exactly hist_rows
+    room = np.nonzero(lens < 256 if diff > 0 else lens > 1)[0]
+    lens[rng.choice(room, abs(diff), replace=False)] += np.sign(diff)
+    b["hoffsets"] = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+                                     ).to(device)
+    b["hlens"] = lens
+    return b
+
+
+def _histograms(b, hist):
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    return c.ListColumn(b["hoffsets"], hist, None)
+
+
+def _tail_calls(b):
+    """name -> call of phase 19 over batch ``b``."""
+    from spark_rapids_jni_tpu_torch import ops
+
+    col, keys = b["col"], b["keys"]
+    calls = {"parse_uri_protocol": lambda: ops.parse_uri_protocol(col),
+             "parse_uri_host": lambda: ops.parse_uri_host(col),
+             "parse_uri_query": lambda: ops.parse_uri_query(col),
+             "parse_uri_query_literal": lambda: ops.parse_uri_query_literal(col, URL_KEY),
+             "parse_uri_query_column": lambda: ops.parse_uri_query_column(col, keys),
+             "parse_uri_path": lambda: ops.parse_uri_path(col),
+             "literal_range_pattern": lambda: ops.literal_range_pattern(col, *URL_RANGE)}
+    for z in TAIL_ZONES:
+        calls[f"to_utc:{z}"] = lambda z=z: ops.convert_timestamp_to_utc(b["ts"], z)
+        calls[f"from_utc:{z}"] = lambda z=z: ops.convert_utc_timestamp_to_timezone(b["ts"], z)
+    for kind in ("micros", "days"):
+        calls[f"gregorian_to_julian:{kind}"] = \
+            lambda k=kind: ops.rebase_gregorian_to_julian(b[k])
+        calls[f"julian_to_gregorian:{kind}"] = \
+            lambda k=kind: ops.rebase_julian_to_gregorian(b[k])
+    calls["interleave_bits"] = lambda: ops.interleave_bits(b["z"])
+    calls["hilbert_index"] = lambda: ops.hilbert_index(10, b["z"])
+    calls["create_histogram_if_valid"] = \
+        lambda: ops.create_histogram_if_valid(b["hvals"], b["hcounts"], False)
+    hist = ops.create_histogram_if_valid(b["hvals"], b["hcounts"], False)
+    calls["percentile_list"] = \
+        lambda: ops.percentile_from_histogram(_histograms(b, hist), TAIL_PCTS, True)
+    calls["percentile_scalar"] = \
+        lambda: ops.percentile_from_histogram(_histograms(b, hist), TAIL_PCTS, False)
+    return calls
+
+
+def tail_path(b):
+    """Every call of phase 19 once with the counters at 0; no kernel may
+    launch.  Returns the counts and the outputs."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    calls = _tail_calls(b)
+    torch.cuda.synchronize()
+    hash_cuda.reset_launches()
+    outs = {name: call() for name, call in calls.items()}
+    torch.cuda.synchronize()
+    counts = dict(hash_cuda.launches)
+    print(json.dumps({"ops_tail_launches": counts}))
+    if any(counts.values()):
+        raise AssertionError(f"phase 19 launched {counts}: its path has no kernel")
+    return counts, outs
+
+
+def _tail_cpu_worker(in_path, out_path, threads, names):
+    """Phase 19's calls ``names`` on the CPU over the heads saved at
+    ``in_path``; the outputs saved at ``out_path`` (run in a process of its
+    own)."""
+    torch.set_num_threads(threads)
+    calls = _tail_calls(torch.load(in_path, weights_only=False))
+    torch.save({name: calls[name]() for name in names}, out_path)
+
+
+def start_tail_cpu(b, tmp):
+    """The first TAIL_CPU_ROWS rows of every input (histograms for the
+    percentiles) copied to the CPU and run through the port in
+    TAIL_CPU_PROCS spawned processes (the calls dealt out in turn, the
+    costliest first) while the card runs the path and is timed; returns
+    what :func:`finish_tail_cpu` takes."""
+    import multiprocessing
+    import os
+
+    n = TAIL_CPU_ROWS
+    m = int(b["hoffsets"][n])  # the first n histograms' rows
+    hb = {"col": _cpu_copy(_head(b["col"], n)), "keys": _cpu_copy(_head(b["keys"], n)),
+          "z": [_cpu_copy(_head(z, n)) for z in b["z"]],
+          "hvals": _cpu_copy(_head(b["hvals"], m)), "hcounts": _cpu_copy(_head(b["hcounts"], m)),
+          "hoffsets": b["hoffsets"][:n + 1].cpu()}
+    for k in ("ts", "micros", "days"):
+        hb[k] = _cpu_copy(_head(b[k], n))
+    in_path = os.path.join(tmp, "tail_in.pt")
+    torch.save(hb, in_path)
+    names = sorted(_tail_calls(hb), key=lambda k: (not k.startswith("parse_uri"),
+                                                   not k.startswith("percentile"), k))
+    ctx = multiprocessing.get_context("spawn")
+    procs = []
+    for k in range(TAIL_CPU_PROCS):
+        out_path = os.path.join(tmp, f"tail_out{k}.pt")
+        proc = ctx.Process(target=_tail_cpu_worker,
+                           args=(in_path, out_path, TAIL_CPU_THREADS, names[k::TAIL_CPU_PROCS]))
+        proc.start()
+        procs.append((proc, out_path))
+    return {"procs": procs, "n": n, "m": m, "t0": time.perf_counter()}
+
+
+def finish_tail_cpu(run, outs):
+    """Waits for the CPU run and holds every card output bit for bit
+    against it over its rows."""
+    for proc, _ in run["procs"]:
+        proc.join()
+    codes = [proc.exitcode for proc, _ in run["procs"]]
+    if any(codes):
+        raise AssertionError(f"phase 19's CPU run exited {codes}")
+    cpu_s = time.perf_counter() - run["t0"]
+    n, m = run["n"], run["m"]
+    cpu_outs = {}
+    for _, out_path in run["procs"]:
+        cpu_outs.update(torch.load(out_path, weights_only=False))
+    if set(cpu_outs) != set(outs):
+        raise AssertionError(f"phase 19's CPU run gave {sorted(cpu_outs)}")
+    for name, want in cpu_outs.items():
+        got = outs[name]
+        if name == "percentile_scalar":
+            got = _head_any(got, n * len(TAIL_PCTS))
+        elif name == "create_histogram_if_valid":
+            got = _head_any(got, m)
+        else:
+            got = _head_any(got, n)
+        _same_column(f"phase 19 {name} card vs CPU", got, want)
+    return {"cpu_rows": n, "cpu_hist_rows": m, "cpu_s": cpu_s, "cpu_procs": TAIL_CPU_PROCS,
+            "cpu_threads": TAIL_CPU_THREADS}
+
+
+def check_uri_oracle(b, outs):
+    """The six parse_uri outputs against tests/uri_oracle.py over the first
+    URL_ORACLE_ROWS rows (a null key gives a null row)."""
+    oracle = _tests_module("uri_oracle")
+    t0 = time.perf_counter()
+    k = URL_ORACLE_ROWS
+    urls = _head(b["col"], k).to_list()
+    keys = _head(b["keys"], k).to_list()
+    parts = {"parse_uri_protocol": "PROTOCOL", "parse_uri_host": "HOST",
+             "parse_uri_query": "QUERY", "parse_uri_path": "PATH"}
+    for name, part in parts.items():
+        want = [oracle.parse_url(u, part) for u in urls]
+        if _head(outs[name], k).to_list() != want:
+            raise AssertionError(f"phase 19 {name} differs from tests/uri_oracle.py")
+    want = [oracle.parse_url(u, "QUERY", URL_KEY) for u in urls]
+    if _head(outs["parse_uri_query_literal"], k).to_list() != want:
+        raise AssertionError("phase 19 parse_uri_query_literal differs from the oracle")
+    want = [None if q is None else oracle.parse_url(u, "QUERY", q) for u, q in zip(urls, keys)]
+    if _head(outs["parse_uri_query_column"], k).to_list() != want:
+        raise AssertionError("phase 19 parse_uri_query_column differs from the oracle")
+    valid_share = {name: float(outs[name].is_valid().float().mean())
+                   for name in list(parts) + ["parse_uri_query_literal", "parse_uri_query_column"]}
+    return {"oracle_rows": k, "oracle_s": time.perf_counter() - t0, "valid_share": valid_share,
+            "literal_range_true": int(outs["literal_range_pattern"].data.sum())}
+
+
+def _out_bytes(col) -> int:
+    from spark_rapids_jni_tpu_torch import columnar as c
+
+    if isinstance(col, list):
+        return sum(_out_bytes(x) for x in col)
+    if isinstance(col, c.ListColumn):
+        return 4 * col.offsets.numel() + _out_bytes(col.child) + \
+            (0 if col.validity is None else col.validity.numel())
+    if isinstance(col, c.StructColumn):
+        return sum(_out_bytes(k) for k in col.children)
+    return _table_bytes([col])
+
+
+def _in_bytes(b, name) -> int:
+    if name.startswith(("parse_uri", "literal_range")):
+        return _table_bytes([b["col"]] + ([b["keys"]] if name.endswith("column") else []))
+    if name.startswith(("to_utc", "from_utc")):
+        return _table_bytes([b["ts"]])
+    if ":" in name:
+        return _table_bytes([b[name.split(":")[1]]])
+    if name in ("interleave_bits", "hilbert_index"):
+        return _table_bytes(b["z"])
+    hist = _table_bytes([b["hvals"], b["hcounts"]])
+    return hist + (4 * b["hoffsets"].numel() if name.startswith("percentile") else 0)
+
+
+def time_tail(b, outs, rates):
+    """Each call's time (CUDA events, median of TAIL_REPS) and peak memory
+    beside its bytes bound: its inputs read once, its output written once."""
+    lines = {}
+    for name, call in _tail_calls(b).items():
+        line = _timed(call, TAIL_REPS, TAIL_WARMUP)
+        nbytes = _in_bytes(b, name) + _out_bytes(outs[name])
+        line.update({"bytes": nbytes, **_bound(nbytes, 0, rates)})
+        lines[name] = line
+    return lines
+
+
+def ops_tail(rates, device="cuda", sizes=None):
+    """Phase 19: the inputs, the path with the counters at 0 (no kernel),
+    the checks, the times; prints the ``ops_tail`` line and returns the
+    path's launch counts."""
+    import tempfile
+
+    tz = _tz_source()
+    t0 = time.perf_counter()
+    b = tail_batch(device, sizes)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu_run = start_tail_cpu(b, tmp)
+        try:
+            t0 = time.perf_counter()
+            counts, outs = tail_path(b)
+            path_s = time.perf_counter() - t0
+            checks = check_uri_oracle(b, outs)
+            times = time_tail(b, outs, rates)
+        finally:
+            for proc, _ in cpu_run["procs"]:
+                proc.join()
+        checks.update(finish_tail_cpu(cpu_run, outs))
+    lens = b["lens"]
+    print(json.dumps({"ops_tail": {
+        "n_url": len(lens), "url_chars_bytes": int(lens.sum()), "url_mean_len": float(lens.mean()),
+        "url_len_range": [int(lens.min()), int(lens.max())],
+        "url_under_300_share": float((lens < 300).mean()),
+        "url_null_share": float(1 - b["valid"].mean()), "url_bad_share": float(b["bad"].mean()),
+        "n_ts": b["ts"].size, "n_rebase": b["days"].size, "n_zorder": b["z"][0].size,
+        "n_hist_rows": b["hvals"].size, "n_hist": len(b["hlens"]),
+        "hist_len_range": [int(b["hlens"].min()), int(b["hlens"].max())],
+        "zones": tz, "launches": counts, "calls": times, "checks": checks,
+        "batch_gen_s": gen_s, "path_s": path_s}}))
+    return counts
+
+
+# ---- phase 20: observability on the card -------------------------------------
+
+OBS_TASK = 970  # the task id of phase 20's governed q97 calls
+OBS_FAULT_SEED = 4  # pressure_storm_config's seed: its first two draws inject
+_DEVICE_CATS = {"cuda": ("kernel", "gpu_memcpy", "gpu_memset"), "cpu": ("cpu_op",)}
+# torch.profiler's device timestamps drift ahead of the host's monotonic
+# clock within a window: the last records of a 2.9 s JSON window landed up
+# to 2.4 ms (about 850 ppm) past the host range that synchronized on them
+# (H100, torch 2.11.0+cu128).  A device event of a call may lie this far
+# outside its host range: OBS_SLACK_US, plus OBS_DRIFT_PPM (a bit over twice
+# the drift seen) of the window's elapsed time
+OBS_SLACK_US, OBS_DRIFT_PPM = 100.0, 2000.0
+
+
+def _union_us(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def _obs_q97(mesh, q97, gov, budget):
+    from spark_rapids_jni_tpu_torch.mem import task_context
+    from spark_rapids_jni_tpu_torch.models import run_distributed_q97
+
+    with task_context(gov, OBS_TASK):
+        out = run_distributed_q97(mesh, q97["store"], q97["catalog"], budget=budget,
+                                  task_id=OBS_TASK, capacity=q97["capacity"], manage_task=False)
+        torch.cuda.synchronize()
+    return (int(out.store_only), int(out.catalog_only), int(out.both))
+
+
+def _faulted_q97(mesh, q97, gov, budget):
+    """One governed q97 call under the seeded pressure storm; returns its
+    answer and the injector's decision at every crossing."""
+    from spark_rapids_jni_tpu_torch.obs import seam
+    from spark_rapids_jni_tpu_torch.obs.faultinj import FaultInjector, pressure_storm_config
+
+    FaultInjector.install(pressure_storm_config(OBS_FAULT_SEED))
+    check, decisions = seam._injector, []
+
+    def recording(category, name):
+        try:
+            check(category, name)
+        except BaseException as e:
+            decisions.append((category, name, type(e).__name__))
+            raise
+        decisions.append((category, name, "ok"))
+
+    seam._set_injector(recording)
+    try:
+        return _obs_q97(mesh, q97, gov, budget), decisions
+    finally:
+        FaultInjector.uninstall()
+
+
+def _profiled_calls(mesh, q97, json_col, gov, budget, tmp):
+    """The two calls under the profiler (with its device trace), each in a
+    host range that ends after a synchronize and in a start/stop window of
+    its own, so the q97 call's few device records are exported apart from
+    the JSON call's ~420,000; returns the answers, the capture's bytes, the
+    device trace directory and the launch counts."""
+    import os
+
+    from spark_rapids_jni_tpu_torch import ops
+    from spark_rapids_jni_tpu_torch.obs import Profiler, seam
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    cap, dev_dir = os.path.join(tmp, "capture.srtp"), os.path.join(tmp, "devtrace")
+    Profiler.init(cap, device_trace_dir=dev_dir)
+    torch.cuda.synchronize()
+    hash_cuda.reset_launches()
+    try:  # a start/stop window (and a device trace export) per call
+        Profiler.start()
+        with seam.seam(seam.OP, "call:governed_q97"):
+            answer = _obs_q97(mesh, q97, gov, budget)
+        Profiler.stop()
+        Profiler.start()
+        with seam.seam(seam.OP, "call:get_json_object_8_paths"):
+            outs = ops.get_json_object_multiple_paths(json_col, JSON_PATHS)
+            torch.cuda.synchronize()
+        Profiler.stop()
+    finally:
+        Profiler.shutdown()
+    counts = dict(hash_cuda.launches)
+    with open(cap, "rb") as f:
+        data = f.read()
+    return answer, outs, data, dev_dir, counts
+
+
+def check_trace(data, dev_dir, counts, device):
+    """The capture parses; every seam range, the reservation counters and
+    the STATE records are there; the device events include mm_hash_long
+    (CUPTI names the kernel, ``(anonymous namespace)::mm_hash_long_kernel``,
+    as often as its counter says) and each lies inside its call's host
+    range (or the profiler's warm-up range that opens each window), widened
+    by OBS_SLACK_US and OBS_DRIFT_PPM of the window's time for the device
+    clock's drift.  Prints
+    and returns the trace's numbers, with the device's busy share of each
+    call's window (the union of kernel intervals over its wall), before any
+    check raises."""
+    import os
+
+    from spark_rapids_jni_tpu_torch.obs import convert, flight, profiler
+
+    t0 = time.perf_counter()
+    events = list(convert.parse_capture(data, strict=True))
+    anchor = next(e["value"] for e in events
+                  if e["type"] == "counter" and e["name"] == profiler.CLOCK_ANCHOR)
+    dev_events = convert.load_device_trace(dev_dir)
+    merged = convert.merge_device_events(convert.to_chrome(events), dev_events, anchor)
+    convert_s = time.perf_counter() - t0
+    trace = merged["traceEvents"]
+    host = [e for e in trace if e.get("pid") == 0 and e.get("ph") == "X"]
+    windows = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in host
+               if e["name"].startswith("call:")}
+    # each profiler window opens with the profiler's own warm-up launches
+    warmups = [(e["ts"], e["ts"] + e["dur"]) for e in host
+               if e["name"] == profiler.WARMUP_RANGE]
+    ranges = sorted({e["name"].split(":")[0] if e["name"].startswith("reserve:") else e["name"]
+                     for e in host})
+    counters = sorted({e["name"] for e in events if e["type"] == "counter"})
+    states = sorted({e["kind"] for e in events if e["type"] == "state"})
+    cats = _DEVICE_CATS[device]
+    # the profiler's windows: each opens at its clock anchor
+    anchors = sorted(e["t_ns"] / 1e3 for e in events
+                     if e["type"] == "counter" and e["name"] == profiler.CLOCK_ANCHOR)
+
+    def widened(s, e):
+        """A host range [s, e] widened for the device clock's drift: the
+        device timestamps of a window run up to OBS_DRIFT_PPM ahead of the
+        host's monotonic clock as the window goes on."""
+        a = max((t for t in anchors if t <= s), default=s)
+        return s - OBS_SLACK_US, e + OBS_SLACK_US + OBS_DRIFT_PPM * 1e-6 * (e - a)
+
+    devs = [e for e in trace if e.get("pid", 0) >= 1000 and e.get("ph") == "X"
+            and e.get("cat") in cats]
+    hash_names = sorted({e["name"] for e in devs if "mm_hash_long" in e["name"]})
+    q97_s, q97_e = windows.get("call:governed_q97", (0, 0))
+    q97_kernels = sorted({d["name"][:48] for d in devs if d.get("cat") == cats[0]
+                          and q97_s <= d["ts"] <= q97_e})
+    n_hash = sum(1 for e in devs if "mm_hash_long" in e["name"])
+    per_call = {}
+    for name, (s, e) in windows.items():
+        ws, we = widened(s, e)
+        inside = [d for d in devs if ws <= d["ts"] and d["ts"] + d["dur"] <= we]
+        kernels = [(d["ts"], d["ts"] + d["dur"]) for d in inside if d.get("cat") == cats[0]]
+        per_call[name] = {
+            "wall_ms": (e - s) / 1e3, "device_events": len(inside), "kernels": len(kernels),
+            "busy_share_kernels": _union_us(kernels) / (e - s),
+            "busy_share_all": _union_us((d["ts"], d["ts"] + d["dur"]) for d in inside) / (e - s),
+            "first_event_after_start_us": min((d["ts"] - s for d in inside), default=None),
+            "last_event_before_end_us": min((e - d["ts"] - d["dur"] for d in inside),
+                                            default=None),
+            "allowance_us": we - e,
+            "max_past_end_us": max((d["ts"] + d["dur"] - e for d in inside), default=None)}
+    ranges_w = [widened(s, e) for s, e in list(windows.values()) + warmups]
+    outside = [d for d in devs if not any(s <= d["ts"] and d["ts"] + d["dur"] <= e
+                                          for s, e in ranges_w)]
+    info = {"srtp_bytes": len(data), "srtp_events": len(events), "device_events": len(devs),
+            "trace_events": len(trace), "seam_ranges": ranges, "counters": counters,
+            "state_kinds": states, "mm_hash_long_events": n_hash, "hash_names": hash_names,
+            "q97_kernel_names": q97_kernels, "device_exports": len(os.listdir(dev_dir)),
+            "calls": per_call, "warmup_ranges": len(warmups), "windows": len(anchors),
+            "drift_ppm_allowed": OBS_DRIFT_PPM, "slack_us": OBS_SLACK_US,
+            "outside": len(outside),
+            "outside_head": [(d["name"][:60], d["ts"], d["dur"]) for d in outside[:3]],
+            "convert_s": convert_s}
+    print(json.dumps({"obs_trace": info}))
+    want = {"call:governed_q97", "call:get_json_object_8_paths",
+            "get_json_object_multiple_paths", "reserve"}
+    if not want <= set(ranges):
+        raise AssertionError(f"phase 20: seam ranges {ranges} lack {want - set(ranges)}")
+    if "device_budget_used" not in counters or flight.EV_TASK_ADMITTED not in states:
+        raise AssertionError(f"phase 20: counters {counters}, state kinds {states}")
+    if device == "cuda" and (n_hash != counts["mm_hash_long"] or n_hash == 0):
+        raise AssertionError(f"phase 20: {n_hash} mm_hash_long device events, "
+                             f"{counts['mm_hash_long']} launches counted")
+    if outside:
+        raise AssertionError(f"phase 20: {len(outside)} device events outside the calls' "
+                             "host ranges")
+    return info
+
+
+def observability(mesh, q97, json_col, device="cuda"):
+    """Phase 20: a governed q97 at SF10 (the governed phase's tables) and an
+    8-path get_json_object over 2**14 rows of phase 17's column under the
+    profiler with its device trace; the merged trace checked; then two
+    governed q97 calls under the seeded pressure storm.  Prints the ``obs``
+    line and returns the profiled calls' launch counts."""
+    import tempfile
+
+    from spark_rapids_jni_tpu_torch.mem import MemoryGovernor
+    from spark_rapids_jni_tpu_torch.mem.governed import default_device_budget
+
+    gov = MemoryGovernor.initialize()
+    try:
+        budget = default_device_budget(gov)
+        t0 = time.perf_counter()
+        unfaulted = _obs_q97(mesh, q97, gov, budget)  # warm; the answer to hold the rest to
+        warm_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            answer, outs, data, dev_dir, counts = _profiled_calls(mesh, q97, json_col, gov,
+                                                                  budget, tmp)
+            profiled_s = time.perf_counter() - t0
+            trace = check_trace(data, dev_dir, counts, device)
+        print(json.dumps({"obs_launches": counts}))
+        t0 = time.perf_counter()
+        faulted = [_faulted_q97(mesh, q97, gov, budget) for _ in range(2)]
+        faulted_s = time.perf_counter() - t0
+    finally:
+        MemoryGovernor.shutdown()
+    oracle = tuple(q97["oracle"])
+    if not unfaulted == answer == oracle:
+        raise AssertionError(f"phase 20 q97 {unfaulted}, profiled {answer} != {oracle}")
+    (a1, d1), (a2, d2) = faulted
+    injected = sum(1 for d in d1 if d[2] != "ok")
+    if a1 != unfaulted or a2 != unfaulted or d1 != d2 or not injected:
+        raise AssertionError(f"phase 20 faulted q97 {a1} / {a2} (unfaulted {unfaulted}); "
+                             f"decisions equal {d1 == d2}, injected {injected}")
+    json_rows = [o.to_list()[:4] for o in outs[:2]]
+    print(json.dumps({"obs": {
+        "q97": list(unfaulted), "json_rows": json_col.size, "json_paths": len(JSON_PATHS),
+        "launches": counts, "busy_share": {n: c["busy_share_kernels"]
+                                           for n, c in trace["calls"].items()},
+        "convert_s": trace["convert_s"], "warm_q97_s": warm_s, "profiled_s": profiled_s,
+        "faulted": {"seed": OBS_FAULT_SEED, "decisions": d1, "injected": injected,
+                    "answers_equal": True, "seconds": faulted_s},
+        "json_head": json_rows}}))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4298,12 +5052,21 @@ def main() -> int:
     path_counts = [counts, col_counts, dist_counts, plan_counts, gov_counts]
     for name, phase in (("bloom", bloom), ("decimal", decimal),
                         ("rows", lambda: jcudf_rows(rates)), ("casts", lambda: casts(rates)),
-                        ("order", lambda: order(gp)), ("json", lambda: json_phase(rates)),
-                        ("config5", config5)):
+                        ("order", lambda: order(gp))):
         path_counts.append(phase())
         lap(name)
-    print(json.dumps({"phase_seconds": seconds}))
-    for row in rows:  # the main path is now all twelve paths: their launches add up
+    json_counts, json_head = json_phase(rates)
+    path_counts.append(json_counts)
+    lap("json")
+    path_counts.append(config5())
+    lap("config5")
+    path_counts.append(ops_tail(rates))
+    lap("ops_tail")
+    with one_rank_mesh("cuda") as mesh:
+        path_counts.append(observability(mesh, q97, json_head))
+    lap("observability")
+    print(json.dumps({"phase_seconds": seconds, "total": sum(seconds.values())}))
+    for row in rows:  # the main path is now all fourteen paths: their launches add up
         row["launches"] = sum(c[row["name"]] for c in path_counts)
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))

@@ -88,11 +88,6 @@ class _AttribHook:
 
 _attrib = _AttribHook()
 
-# the profiler's counter sink, ``Profiler.counter(name, value)`` in the JAX
-# package: unbound (None) until the port has a profiler.  reservation()
-# reaches it only while a profiler range is active (``seam._profiler_range``)
-_profiler_counter: Optional[Callable[[str, int], None]] = None
-
 
 class MaxSplitDepthExceeded(MemoryError):
     """A batch could not be made small enough within the split-depth cap."""
@@ -155,17 +150,15 @@ def reservation(budget: BudgetedResource, nbytes: int):
                     nbytes, time.monotonic_ns() - t0)
         return
 
+    from spark_rapids_jni_tpu_torch.obs.profiler import Profiler
+
     ctr = "cpu_budget_used" if budget.is_cpu else "device_budget_used"
 
     def _emit():
         # sample + timestamp under the budget lock so concurrent tenants'
-        # counter points can never reorder against the values they carry;
-        # the counter sink is unbound until the port has a profiler
-        counter = _profiler_counter
-        if counter is None:
-            return
+        # counter points can never reorder against the values they carry
         with budget._lock:
-            counter(ctr, budget.used)
+            Profiler.counter(ctr, budget.used)
 
     acquired = False
     try:

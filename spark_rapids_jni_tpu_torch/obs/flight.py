@@ -1,7 +1,7 @@
 """Governance flight recorder: always-on ring of state-transition events
 (a copy of the JAX package's ``obs/flight.py``; the ring is the port's own,
-not shared with the JAX package).  The profiler's STATE stream is a deferred
-hook, :data:`_profiler_state`, unbound until the port has a profiler.
+not shared with the JAX package).  While a profiler range is active every
+event also streams to the port's profiler as a STATE record.
 
 The reference's only window into its SparkResourceAdaptor state machine is
 a CSV transition log the operator must arm *before* the incident
@@ -306,12 +306,6 @@ def _dump_min_interval_s() -> float:
     return float(config.get("flight_dump_rate_s"))
 
 
-# the profiler's STATE record sink, ``Profiler.state(kind_id, task_id,
-# detail, value, t_ns=, tid=)`` in the JAX package: unbound (None) until the
-# port has a profiler, so an active profiler range streams no state records
-_profiler_state: Optional[Callable[..., None]] = None
-
-
 class FlightRecorder:
     """Bounded ring of governance events + per-task accumulators."""
 
@@ -381,8 +375,10 @@ class FlightRecorder:
                     st["blocked_ns"] += max(int(value), 0)
                 elif kind == EV_TASK_KILLED:
                     st["killed"] += 1
-        if _seam._profiler_range is not None and _profiler_state is not None:
-            _profiler_state(KIND_IDS[kind], task_id, detail, value,
+        if _seam._profiler_range is not None:
+            from spark_rapids_jni_tpu_torch.obs.profiler import Profiler
+
+            Profiler.state(KIND_IDS[kind], task_id, detail, value,
                            t_ns=t_ns, tid=tid)
 
     # -- reading -----------------------------------------------------------

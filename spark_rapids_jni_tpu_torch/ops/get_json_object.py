@@ -158,10 +158,6 @@ _COUNTERS: Dict[str, int] = {"step_cap_truncated": 0}
 # accumulator updates must not race
 _OBS_LOCK = threading.Lock()
 
-# the profiler's counter sink (``Profiler.counter(name, value)``); unbound
-# until the port's profiler exists, so the seam crossing alone reports
-_profiler_counter = None
-
 
 def reset_phase_times() -> None:
     """Zero the per-phase wall-clock accumulators."""
@@ -204,8 +200,8 @@ def _note_truncation(k: int) -> None:
     A row that exhausts the step cap is nulled: indistinguishable, at the
     column level, from a genuine null result.  This crossing makes the
     difference observable: the fault injector can target it, the profiler
-    (once bound) records a cumulative counter, and the crossing name carries
-    the per-call count.
+    records a cumulative counter, and the crossing name carries the per-call
+    count.
     """
     if k <= 0:
         return
@@ -213,9 +209,9 @@ def _note_truncation(k: int) -> None:
         _COUNTERS["step_cap_truncated"] += int(k)
         total = _COUNTERS["step_cap_truncated"]
     with seam(OP, f"json:step_cap_truncated:{int(k)}"):
-        counter = _profiler_counter
-        if counter is not None:
-            counter("json.step_cap_truncated", total)
+        from spark_rapids_jni_tpu_torch.obs.profiler import Profiler
+
+        Profiler.counter("json.step_cap_truncated", total)
 
 
 def parse_path(path: str) -> List[tuple]:

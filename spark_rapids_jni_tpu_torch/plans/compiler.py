@@ -523,9 +523,14 @@ def compile_plan(plan: ir.Plan, mesh, signature: Tuple,
 def cached_executor(plan: ir.Plan, mesh, signature: Tuple,
                     device: _device.DeviceLike = None) -> CompiledPlan:
     """The executor for (plan, mesh, input signature, and the device of a
-    local plan) from the process-global plan cache, built on a miss."""
+    local plan) from the process-global plan cache, built on a miss.  A mesh
+    plan's key also holds the data axis's process group, the one its
+    executor sums over: equal meshes over a group made again (after
+    ``destroy_process_group``) build a new executor, not one bound to the
+    destroyed group."""
     dev = plan_device(mesh, device)
-    key = (plan, mesh, signature) if mesh is not None else (plan, None, signature, dev)
+    key = ((plan, mesh, axis_group(mesh, DATA_AXIS), signature) if mesh is not None
+           else (plan, None, signature, dev))
     return plan_cache.get_or_compile(key, lambda: compile_plan(plan, mesh, signature, dev))
 
 

@@ -366,7 +366,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spark_rapids_jni_tpu_torch.io.parquet_read, spark_rapids_jni_tpu_torch.io.spill\n"
         "import spark_rapids_jni_tpu_torch.models.streaming\n"
         "import spark_rapids_jni_tpu_torch.models.nds_harness\n"
+        "import spark_rapids_jni_tpu_torch.utils.utf8, spark_rapids_jni_tpu_torch.utils.tzif\n"
+        "import spark_rapids_jni_tpu_torch.ops.regex_rewrite\n"
+        "import spark_rapids_jni_tpu_torch.ops.datetime_rebase\n"
+        "import spark_rapids_jni_tpu_torch.ops.timezones, spark_rapids_jni_tpu_torch.ops.zorder\n"
+        "import spark_rapids_jni_tpu_torch.ops.histogram\n"
+        "import spark_rapids_jni_tpu_torch.ops.parse_uri\n"
+        "import spark_rapids_jni_tpu_torch.obs.timing, spark_rapids_jni_tpu_torch.obs.profiler\n"
+        "import spark_rapids_jni_tpu_torch.obs.convert, spark_rapids_jni_tpu_torch.obs.faultinj\n"
+        "import spark_rapids_jni_tpu_torch.obs.trace, spark_rapids_jni_tpu_torch.version\n"
+        "from spark_rapids_jni_tpu_torch.ops import parse_uri_host, percentile_from_histogram\n"
+        "from spark_rapids_jni_tpu_torch.obs import Profiler, FaultInjector, install_from_env\n"
         "sys.path.insert(0, 'tests')\n"
+        "import uri_oracle  # the parse_url oracle the card's smoke run imports\n"
         "import torch_mesh_ranks  # what spawned gloo ranks import\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

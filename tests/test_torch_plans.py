@@ -498,6 +498,28 @@ def test_local_plan_cache_key_holds_the_device():
     assert compile_plan(plan, None, a.signature, device="cpu").out_names == a.out_names
 
 
+def test_mesh_plan_rebuilt_for_a_group_made_again():
+    """A mesh plan's executor sums over its data axis's process group, so
+    the cache key holds that group: an equal (1, 1) mesh over a group made
+    again after destroy_process_group builds a new executor instead of one
+    bound to the destroyed group (whose NCCL communicator is aborted)."""
+    from spark_rapids_jni_tpu_torch.models.tpcds import generate_q97_tables
+    from spark_rapids_jni_tpu_torch.parallel import axis_group, one_rank_mesh
+
+    store, catalog = generate_q97_tables(sf=0.01, seed=42)
+    answers, groups = [], []
+    for _ in range(2):
+        with one_rank_mesh("cpu") as mesh:
+            traces = plan_cache.stats()["traces"]
+            for _ in range(2):
+                out = q97.run_distributed_q97(mesh, store, catalog)
+                answers.append((int(out.store_only), int(out.catalog_only), int(out.both)))
+            assert plan_cache.stats()["traces"] == traces + 1  # one build per group
+            groups.append(axis_group(mesh, "data"))
+    assert len(set(answers)) == 1
+    assert groups[0] is not groups[1]
+
+
 def test_unfused_bodies_match_jax_with_out_of_range_groups():
     """q3's per-op body scatters like ``.at[group].add(mode="drop")``: a
     group of -1 (brand id 0) counts from the end, as in JAX, and q5's masked
