@@ -170,8 +170,8 @@ port package beside it.  Otherwise it:
    ``$.store.fruit[0]``, ``$.*`` and one no row matches), one single-path
    ``get_json_object`` and ``from_json`` over the column with its malformed
    rows nulled, all on the device arm; holds every output bit for bit
-   against the host arm on the card over the first 2**16 rows, the port's
-   CPU run of the first 2**14 rows and ``tests/json_oracle.py`` over the
+   against the host arm on the card over the first 2**15 rows, the port's
+   CPU run of the first 2**13 rows and ``tests/json_oracle.py`` over the
    first 2**12, checks that ``from_json`` of the whole column raises at the
    expected row, and prints a ``json`` line (per call: time, peak memory,
    phases, the kernels the profiler sees on 2**14 rows, bytes bound);
@@ -217,13 +217,36 @@ port package beside it.  Otherwise it:
    that the seam ranges, the reservation counters and the flight
    recorder's STATE records are there, that ``mm_hash_long`` is among the
    device events as often as its counter says, and that every device event
-   lies inside its call's host range; prints each call's device busy share
+   lies inside its call's host range (each window's export placed with
+   that window's clock anchor); prints each call's device busy share
    (the union of its kernels over its wall); then runs two governed q97
    calls under the seeded ``pressure_storm_config``, whose answers must
    equal the unfaulted one and whose injector decisions must be equal; and
-   prints an ``obs`` line; then the phases' seconds, the card's name and
-   power limit, the ``kernels`` line (all seven kernels, their launches
-   over the fourteen paths) and, last, the ``ok`` line.
+   prints an ``obs`` line;
+21. serves on the card through the port's ``ServingEngine`` (built-in
+   handlers, 4 workers, a queue of 64) over a one-rank NCCL mesh, with three
+   sessions (priorities 0, 1, 2) and 8 client threads: q97 at SF10 twice,
+   q5, q3 and 32 ``get_json_object`` requests (1,024 rows of phase 17's
+   generator, its 8 paths), then 512 ``hash32`` requests (int64 rows
+   log-uniform over 1-2**20, numpy seed 79) through the micro-batcher and
+   the same 512 with ``serve_ragged`` (256-row pages, 64 pages, 64
+   riders); a q97 on an engine whose budget is half its working set, which
+   must split and re-queue; 64 ``hash32`` requests under a seeded RetryOOM
+   storm on ``handle:hash32``, twice, whose answers must not change, whose
+   retries must equal the injected faults and whose injector decisions must
+   be equal; and q3's plan twice through ``run_governed_plan`` with
+   ``serve_result_cache`` on, the second a hit equal to the first with no
+   reservation and no launch.  Holds q97 against the distributed phase's
+   oracle, q5 and q3 against the plans phase's answers, each JSON answer
+   against the direct call, every ``hash32`` answer bit for bit against the
+   plain version on the card and the ragged answers against the
+   micro-batch's; no request may be lost, ``mm_hash_long`` must launch at
+   least once per micro-batch execution and per ragged tick, and the ragged
+   programs built must be among the page geometries the ticks launched at.
+   Prints ``serve_stage`` lines, ``serve_launches`` and the ``serve`` line;
+   then the phases' seconds, the card's name and power limit, the
+   ``kernels`` line (all seven kernels, their launches over the fifteen
+   paths) and, last, the ``ok`` line.
 
 The governed phase also holds every call's device peak over its reservation
 to the default budget's headroom factor (``mem.governed.PEAK_OVER_RESERVATION``),
@@ -3727,8 +3750,8 @@ N_JSON = 1 << 22  # event rows: lengths 33-1011 B, mean 212.5 B, 0.89 GB of char
 JSON_SEED = 71
 JSON_POOL = 1 << 14  # distinct documents the rows are drawn from (each row gets its own id)
 JSON_NULL, JSON_BAD = 0.10, 0.02  # null rows; malformed (truncated) documents
-JSON_HOST_ROWS = 1 << 16  # rows held device arm against host arm on the card
-JSON_CPU_ROWS = 1 << 14  # rows held against the port's CPU run
+JSON_HOST_ROWS = 1 << 15  # rows held device arm against host arm on the card
+JSON_CPU_ROWS = 1 << 13  # rows held against the port's CPU run
 JSON_ORACLE_ROWS = 1 << 12  # rows held against tests/json_oracle.py
 JSON_PROFILE_ROWS = 1 << 14  # rows of the calls whose kernels the profiler counts
 JSON_REPS, JSON_WARMUP = 1, 0  # the warm-up is each call's own run on the path
@@ -4853,7 +4876,7 @@ def check_trace(data, dev_dir, counts, device):
     as often as its counter says) and each lies inside its call's host
     range (or the profiler's warm-up range that opens each window), widened
     by OBS_SLACK_US and OBS_DRIFT_PPM of the window's time for the device
-    clock's drift.  Prints
+    clock's drift, each window's export placed with its own clock anchor.  Prints
     and returns the trace's numbers, with the device's busy share of each
     call's window (the union of kernel intervals over its wall), before any
     check raises."""
@@ -4863,10 +4886,22 @@ def check_trace(data, dev_dir, counts, device):
 
     t0 = time.perf_counter()
     events = list(convert.parse_capture(data, strict=True))
-    anchor = next(e["value"] for e in events
-                  if e["type"] == "counter" and e["name"] == profiler.CLOCK_ANCHOR)
-    dev_events = convert.load_device_trace(dev_dir)
-    merged = convert.merge_device_events(convert.to_chrome(events), dev_events, anchor)
+    # each start() banks its own wall-minus-monotonic anchor and each stop()
+    # writes its own export: a window's device events are placed with its own
+    # anchor, as the drift allowance below counts from it
+    offsets = [e["value"] for e in events
+               if e["type"] == "counter" and e["name"] == profiler.CLOCK_ANCHOR]
+    exports = sorted((os.path.join(dev_dir, n) for n in os.listdir(dev_dir)),
+                     key=os.path.getmtime)
+    if len(exports) != len(offsets):
+        raise AssertionError(f"phase 20: {len(exports)} device exports for "
+                             f"{len(offsets)} profiler windows")
+    merged = convert.to_chrome(events)
+    for k, (path, offset) in enumerate(zip(exports, offsets)):
+        one = os.path.join(dev_dir, f"window{k}")
+        os.mkdir(one)
+        os.rename(path, os.path.join(one, os.path.basename(path)))
+        merged = convert.merge_device_events(merged, convert.load_device_trace(one), offset)
     convert_s = time.perf_counter() - t0
     trace = merged["traceEvents"]
     host = [e for e in trace if e.get("pid") == 0 and e.get("ph") == "X"]
@@ -4920,6 +4955,7 @@ def check_trace(data, dev_dir, counts, device):
             "state_kinds": states, "mm_hash_long_events": n_hash, "hash_names": hash_names,
             "q97_kernel_names": q97_kernels, "device_exports": len(os.listdir(dev_dir)),
             "calls": per_call, "warmup_ranges": len(warmups), "windows": len(anchors),
+            "anchor_offsets_ns": offsets,
             "drift_ppm_allowed": OBS_DRIFT_PPM, "slack_us": OBS_SLACK_US,
             "outside": len(outside),
             "outside_head": [(d["name"][:60], d["ts"], d["dur"]) for d in outside[:3]],
@@ -4987,6 +5023,455 @@ def observability(mesh, q97, json_col, device="cuda"):
                     "answers_equal": True, "seconds": faulted_s},
         "json_head": json_rows}}))
     return counts
+
+
+# ---- the serving engine (phase 21) ------------------------------------------
+
+SERVE_SEED = 79  # numpy seed of the hash32 payloads and of the traffic's order
+SERVE_CLIENTS = 8  # client threads, each waiting on its answer before its next submit
+SERVE_PRIORITIES = (0, 1, 2)  # the three sessions' priorities
+SERVE_HASH_REQS = 512  # hash32 requests (micro-batcher, then the same ones ragged)
+SERVE_HASH_MAX_ROWS = 1 << 20  # their int64 rows are log-uniform over 1..this
+SERVE_JSON_REQS = 32  # get_json_object requests, each over SERVE_JSON_ROWS rows and 8 paths
+SERVE_JSON_ROWS = 1024
+SERVE_STORM_REQS = 64  # hash32 requests under the RetryOOM storm (the first payloads)
+SERVE_STORM = {"seed": SERVE_SEED,
+               "serve": {"handle:hash32": {"percent": 25.0, "injectionType": "retry_oom"}}}
+SERVE_Q3_TASK = 2103  # the task id of the result-cache q3 calls
+
+
+def _serve_clients(engine, sessions, reqs):
+    """Submit ``reqs`` [(handler, payload, rows)] from SERVE_CLIENTS threads,
+    request i by session i % 3, each client waiting on its answer before its
+    next submit (retrying after the hint on Backpressure); returns, per
+    request, (answer, submit time, answer time) on the host clock -- each
+    answer is host data, so no clock reads work still on the card -- and the
+    queue's peak depth seen after the submits."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_rapids_jni_tpu_torch.serve import Backpressure
+
+    peak = [0]
+
+    def one(i):
+        handler, payload, _rows = reqs[i]
+        t0 = time.perf_counter()
+        while True:
+            try:
+                resp = engine.submit(sessions[i % len(sessions)], handler, payload)
+                break
+            except Backpressure as e:
+                time.sleep(e.retry_after_s)
+        peak[0] = max(peak[0], engine.queue.depth())
+        out = resp.result(timeout=900)
+        return out, t0, time.perf_counter()
+
+    with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+        results = list(pool.map(one, range(len(reqs))))
+    return results, peak[0]
+
+
+def _serve_stats(reqs, results):
+    """Per handler: requests, ok (every answer was checked before this), p50
+    and p99 of the client-side latency in ms, rows and rows/s over the span
+    from the handler's first submit to its last answer."""
+    by = {}
+    for (handler, _p, rows), (_out, t0, t1) in zip(reqs, results):
+        d = by.setdefault(handler, {"lat": [], "rows": 0, "t0": t0, "t1": t1})
+        d["lat"].append((t1 - t0) * 1e3)
+        d["rows"] += rows
+        d["t0"], d["t1"] = min(d["t0"], t0), max(d["t1"], t1)
+    return {h: {"requests": len(d["lat"]), "ok": len(d["lat"]),
+                "p50_ms": float(np.percentile(d["lat"], 50)),
+                "p99_ms": float(np.percentile(d["lat"], 99)),
+                "rows": d["rows"], "rows_per_s": d["rows"] / (d["t1"] - d["t0"])}
+            for h, d in by.items()}
+
+
+def _counting(seam_mod, seen):
+    """Count every seam crossing, by (category, name), into ``seen``."""
+    def hook(category, name):
+        seen[(category, name)] = seen.get((category, name), 0) + 1
+    seam_mod._set_injector(hook)
+
+
+def _ragged_geometries(seen, seam_mod):
+    """(the geometries the ragged ticks launched at, those built as programs)
+    from the crossings ``launch:ragged:<kernel>:<geometry>`` and
+    ``ragged:<kernel>:<geometry>``."""
+    launched = {n.split(":", 3)[3] for c, n in seen
+                if c == seam_mod.COLLECTIVE and n.startswith("launch:ragged:")}
+    built = {n.split(":", 2)[2] for c, n in seen
+             if c == seam_mod.COMPILE and n.startswith("ragged:")}
+    return launched, built
+
+
+def _serve_hash_payloads(n, max_rows, seed=SERVE_SEED):
+    rng = np.random.default_rng(seed)
+    sizes = np.exp(rng.uniform(0.0, np.log(max_rows), n)).astype(np.int64) + 1
+    sizes = np.minimum(sizes, max_rows)
+    return [rng.integers(-(1 << 63), (1 << 63) - 1, int(k), dtype=np.int64, endpoint=True)
+            for k in sizes]
+
+
+def _hash_plain(payloads, device):
+    """The plain torch version of every hash32 answer, on ``device``."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    return [hash_cuda.mm_hash_long_torch(torch.from_numpy(p).to(device), 42).cpu().numpy()
+            for p in payloads]
+
+
+def _require_same_arrays(what, got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"phase 21 {what}: answer {i} differs")
+    if len(got) != len(want):
+        raise AssertionError(f"phase 21 {what}: {len(got)} answers for {len(want)}")
+
+
+def _engine(gov, budget, mesh, **kw):
+    from spark_rapids_jni_tpu_torch.serve import ServingEngine
+
+    return ServingEngine(mesh=mesh, gov=gov, budget=budget, builtin_handlers=True,
+                         default_deadline_s=900.0, **kw)
+
+
+def _sessions(engine):
+    return [engine.open_session(f"client-p{p}", priority=p) for p in SERVE_PRIORITIES]
+
+
+def _unanswered(engine, answered):
+    """What the engine counted beside the ``answered`` client requests: every
+    front-door request must be answered, none failed, timed out or cancelled
+    (split halves count their own completions, so ``completed`` is not
+    compared)."""
+    m = engine.metrics
+    got = {k: m.get(k) for k in ("submitted", "failed", "timed_out", "cancelled")}
+    if got["submitted"] != answered or got["failed"] or got["timed_out"] or got["cancelled"]:
+        raise AssertionError(f"phase 21: {answered} answers, engine counts {got}")
+    return got
+
+
+def _storm_run(gov, budget, mesh, payloads):
+    """The RetryOOM storm: one worker held on a gate until every hash32
+    request is queued (the queue holds them all) (so the batches and the order of the crossings are the
+    same in every run), SERVE_STORM armed on the seam; returns the answers,
+    the injector's decision at every crossing and the engine's retries."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch.obs import seam
+    from spark_rapids_jni_tpu_torch.obs.faultinj import FaultInjector
+    from spark_rapids_jni_tpu_torch.serve import QueryHandler
+
+    eng = _engine(gov, budget, mesh, workers=1, queue_size=len(payloads) + 1)
+    gate = threading.Event()
+    FaultInjector.install(SERVE_STORM)
+    check, decisions = seam._injector, []
+
+    def recording(category, name):
+        try:
+            check(category, name)
+        except BaseException as e:
+            decisions.append((category, name, type(e).__name__))
+            raise
+        decisions.append((category, name, "ok"))
+
+    seam._set_injector(recording)
+    try:
+        eng.register(QueryHandler(name="gate", fn=lambda p, ctx: gate.wait(600)))
+        sess = eng.open_session("storm")
+        held = eng.submit(sess, "gate", None)
+        resps = [eng.submit(sess, "hash32", p) for p in payloads]
+        gate.set()
+        held.result(timeout=600)
+        answers = [r.result(timeout=600) for r in resps]
+    finally:
+        gate.set()
+        FaultInjector.uninstall()
+        eng.shutdown()
+    _unanswered(eng, len(answers) + 1)  # and the gate
+    return answers, decisions, eng.metrics.get("retried")
+
+
+def serve_phase(mesh, q97, gp, json_head, device="cuda"):
+    """Phase 21: the port's ServingEngine on ``mesh`` (a one-rank NCCL mesh)
+    with its built-in handlers, 4 workers and a queue of 64 (the flags'
+    defaults), three sessions (priorities 0, 1, 2) and 8 client threads:
+    q97 at SF10 twice, q5 and q3 on the plans phase's data and 32
+    get_json_object requests in one shuffled stream, then 512 hash32
+    requests through the micro-batcher; a q97
+    under half its working set on an engine of that budget (it must split and
+    re-queue); the same 512 hash32 payloads with serve_ragged on (the default
+    geometry: 256-row pages, 64 pages, 64 riders); 64 hash32 requests under a
+    seeded RetryOOM storm on handle:hash32, twice; and q3's plan twice
+    through run_governed_plan with serve_result_cache on.  Every answer is
+    held to its reference; prints the ``serve`` line and returns the phase's
+    launch counts."""
+    from spark_rapids_jni_tpu_torch import columnar as c
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch.mem import BudgetedResource, MemoryGovernor, task_context
+    from spark_rapids_jni_tpu_torch.mem.governed import default_device_budget
+    from spark_rapids_jni_tpu_torch.models import Q97Batch, run_distributed_q3
+    from spark_rapids_jni_tpu_torch.models.q97 import (
+        default_q97_capacity,
+        q97_working_set_bytes,
+    )
+    from spark_rapids_jni_tpu_torch.obs import seam
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+    from spark_rapids_jni_tpu_torch.ops.get_json_object import get_json_object_multiple_paths
+    from spark_rapids_jni_tpu_torch.plans import plan_cache
+    from spark_rapids_jni_tpu_torch.plans.rcache import result_cache
+
+    t_phase = time.perf_counter()
+    store, catalog = q97["store"], q97["catalog"]
+    q97_rows = len(store[0]) + len(catalog[0])
+    oracle = tuple(q97["oracle"])
+    payloads = _serve_hash_payloads(SERVE_HASH_REQS, SERVE_HASH_MAX_ROWS)
+    plain = _hash_plain(payloads, device)
+    json_rows = _head(json_head, SERVE_JSON_ROWS).to_list()
+    t0 = time.perf_counter()
+    json_want = [o.to_list() for o in get_json_object_multiple_paths(
+        c.strings_column(json_rows, device=device), JSON_PATHS)]
+    json_direct_s = time.perf_counter() - t0  # its answer is host data
+    rng = np.random.default_rng(SERVE_SEED)
+    reqs = ([("q97", (store, catalog), q97_rows)] * 2
+            + [("q5", gp["q5"], sum(len(ch.sales_sk) + len(ch.ret_sk)
+                                    for ch in gp["q5"].channels.values())),
+               ("q3", gp["q3"], len(gp["q3"].ss_item_sk))]
+            + [("get_json_object", (json_rows, JSON_PATHS), SERVE_JSON_ROWS)] * SERVE_JSON_REQS)
+    reqs = [reqs[i] for i in rng.permutation(len(reqs))]
+    hreqs = [("hash32", p, len(p)) for p in payloads]
+    ws = q97_working_set_bytes(Q97Batch(*store, *catalog,
+                                        capacity=default_q97_capacity(q97_rows, 1)), 1)
+    gov = MemoryGovernor.initialize()
+    seen, stages, out = {}, {}, {}
+    try:
+        budget = default_device_budget(gov)
+        torch.cuda.synchronize()
+        hash_cuda.reset_launches()
+        # 1. the queries, then the hash32 requests through the micro-batcher
+        t0 = time.perf_counter()
+        eng = _engine(gov, budget, mesh)
+        _counting(seam, seen)
+        try:
+            sessions = _sessions(eng)
+            qresults, qpeak = _serve_clients(eng, sessions, reqs)
+            stages["queries_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            hresults, hpeak = _serve_clients(eng, sessions, hreqs)
+        finally:
+            seam._set_injector(None)
+            eng.shutdown()
+        stages["micro_s"] = time.perf_counter() - t0
+        results, peak = qresults + hresults, max(qpeak, hpeak)
+        print(json.dumps({"serve_stage": "queries+micro", "s": stages}), flush=True)
+        micro_launches = hash_cuda.launches["mm_hash_long"]
+        m1 = {k: eng.metrics.get(k) for k in ("completed", "batched", "retried",
+                                              "split_requeued")}
+        m1.update(_unanswered(eng, len(results)), queue_peak=peak)
+        m1["handlers"] = eng.metrics.snapshot()["handlers"]
+        micro = {}
+        for (handler, payload, _rows), (ans, _t0, _t1) in zip(reqs + hreqs, results):
+            if handler == "q97":
+                got = (int(ans.store_only), int(ans.catalog_only), int(ans.both))
+                if got != oracle:
+                    raise AssertionError(f"phase 21 q97 {got} != oracle {oracle}")
+            elif handler == "q5" and ans != gp["q5_rows"]:
+                raise AssertionError("phase 21 q5 != the plans phase's answer")
+            elif handler == "q3" and [tuple(r) for r in ans] != gp["q3_rows"]:
+                raise AssertionError("phase 21 q3 != the plans phase's answer")
+            elif handler == "get_json_object" and ans != json_want:
+                raise AssertionError("phase 21 get_json_object != the direct call")
+            elif handler == "hash32":
+                micro[id(payload)] = ans
+        micro = [micro[id(p)] for p in payloads]
+        _require_same_arrays("hash32 (micro-batch) against the plain version", micro, plain)
+        out["mixed"] = {**_serve_stats(reqs, qresults), **_serve_stats(hreqs, hresults)}
+        # 2. q97 on an engine whose budget is half its working set
+        t0 = time.perf_counter()
+        tight = BudgetedResource(gov, int(ws * GOV_TIGHT))
+        eng = _engine(gov, tight, mesh)
+        try:
+            sess = _sessions(eng)
+            t_req = time.perf_counter()
+            ans = eng.submit(sess[0], "q97", (store, catalog)).result(timeout=900)
+            tight_s = time.perf_counter() - t_req
+        finally:
+            eng.shutdown()
+        got = (int(ans.store_only), int(ans.catalog_only), int(ans.both))
+        m2 = {k: eng.metrics.get(k) for k in ("completed", "split_requeued", "retried")}
+        m2.update(_unanswered(eng, 1), class_splits=eng.class_split_counts())
+        if got != oracle or m2["split_requeued"] < 2 or m2["class_splits"].get("q97", 0) < 1:
+            raise AssertionError(f"phase 21 tight q97 {got} (oracle {oracle}), {m2}")
+        if tight.used:
+            raise AssertionError(f"phase 21 tight budget left in use: {tight.used}")
+        stages["tight_s"] = time.perf_counter() - t0
+        print(json.dumps({"serve_stage": "tight", "s": stages["tight_s"]}), flush=True)
+        # 3. the same hash32 payloads with serve_ragged on
+        t0 = time.perf_counter()
+        before = hash_cuda.launches["mm_hash_long"]
+        misses = plan_cache.stats()["misses"]
+        eng = _engine(gov, budget, mesh, serve_ragged=True)
+        ragged_seen = {}
+        _counting(seam, ragged_seen)
+        try:
+            rresults, rpeak = _serve_clients(eng, _sessions(eng), hreqs)
+        finally:
+            seam._set_injector(None)
+            eng.shutdown()
+        ragged = [a for a, _t0, _t1 in rresults]
+        _require_same_arrays("hash32 (ragged) against the micro-batch answers", ragged, micro)
+        ticks = eng.metrics.get("ragged_launches")
+        ragged_launches = hash_cuda.launches["mm_hash_long"] - before
+        geoms, programs = _ragged_geometries(ragged_seen, seam)
+        m3 = {k: eng.metrics.get(k) for k in ("completed", "ragged_launches",
+                                              "ragged_batched", "ragged_pages", "ragged_rows",
+                                              "ragged_row_capacity", "ragged_splits",
+                                              "retried")}
+        m3.update(_unanswered(eng, len(rresults)), queue_peak=rpeak, geometries=sorted(geoms),
+                  programs_built=sorted(programs),
+                  plan_cache_misses=plan_cache.stats()["misses"] - misses)
+        if ragged_launches < ticks or ticks < 1 or not programs <= geoms:
+            raise AssertionError(f"phase 21 ragged: {ragged_launches} mm_hash_long launches "
+                                 f"over {ticks} ticks, programs {programs}, geometries {geoms}")
+        out["ragged"] = _serve_stats(hreqs, rresults)
+        stages["ragged_s"] = time.perf_counter() - t0
+        print(json.dumps({"serve_stage": "ragged", "s": stages["ragged_s"]}), flush=True)
+        # 4. the RetryOOM storm, twice
+        t0 = time.perf_counter()
+        storm = [_storm_run(gov, budget, mesh, payloads[:SERVE_STORM_REQS]) for _ in range(2)]
+        (a1, d1, r1), (a2, d2, r2) = storm
+        _require_same_arrays("hash32 under the storm", a1, micro[:SERVE_STORM_REQS])
+        _require_same_arrays("hash32 under the second storm", a2, micro[:SERVE_STORM_REQS])
+        injected = sum(1 for d in d1 if d[2] != "ok")
+        if d1 != d2 or not injected or r1 != injected or r2 != injected:
+            raise AssertionError(f"phase 21 storm: decisions equal {d1 == d2}, injected "
+                                 f"{injected}, retries {r1} / {r2}")
+        stages["storm_s"] = time.perf_counter() - t0
+        print(json.dumps({"serve_stage": "storm", "s": stages["storm_s"]}), flush=True)
+        # 5. q3's plan twice with the result cache on: the second is a hit
+        t0 = time.perf_counter()
+        result_cache.reset_for_tests()
+        result_cache.bind_budget(budget, device=device)
+        try:
+            with config.override(serve_result_cache=True), task_context(gov, SERVE_Q3_TASK):
+                first = run_distributed_q3(mesh, gp["q3"], budget=budget,
+                                           task_id=SERVE_Q3_TASK, manage_task=False)
+                held, execs = budget.used, plan_cache.stats()["execute_calls"]
+                budget.reset_peak()
+                t_hit = time.perf_counter()
+                second = run_distributed_q3(mesh, gp["q3"], budget=budget,
+                                            task_id=SERVE_Q3_TASK, manage_task=False)
+                hit_s = time.perf_counter() - t_hit
+                peak_during_hit = budget.reset_peak()
+            rstats = result_cache.stats()
+        finally:
+            result_cache.reset_for_tests()
+        if ([tuple(r) for r in first] != gp["q3_rows"] or second != first
+                or plan_cache.stats()["execute_calls"] != execs or peak_during_hit != held
+                or rstats["hits"] != 1 or rstats["hbm_entries"] != 1):
+            raise AssertionError(f"phase 21 result cache: equal {second == first}, "
+                                 f"peak {peak_during_hit} held {held}, {rstats}")
+        stages["rcache_s"] = time.perf_counter() - t0
+        print(json.dumps({"serve_stage": "rcache", "s": stages["rcache_s"]}), flush=True)
+    finally:
+        seam._set_injector(None)
+        MemoryGovernor.shutdown()
+    counts = dict(hash_cuda.launches)
+    executions = seen.get((seam.SERVE, "handle:hash32"), 0)
+    if micro_launches < executions or executions < 1 or counts["mm_hash_long"] < 1:
+        raise AssertionError(f"phase 21: {micro_launches} mm_hash_long launches over "
+                             f"{executions} hash32 executions")
+    print(json.dumps({"serve_launches": counts}))
+    print(json.dumps({"serve": {
+        "mesh": [1, 1], "workers": 4, "queue_size": 64, "clients": SERVE_CLIENTS,
+        "sessions": list(SERVE_PRIORITIES), "seed": SERVE_SEED,
+        "handlers": out["mixed"], "engine_run_ms": m1.pop("handlers"), "mixed": m1,
+        "tight_q97": {"s": tight_s, "budget_bytes": tight.limit, "working_set_bytes": ws,
+                      **m2},
+        "ragged": {"handlers": out["ragged"], **m3, "mm_hash_long_launches": ragged_launches},
+        "storm": {"requests": SERVE_STORM_REQS, "config": SERVE_STORM, "injected": injected,
+                  "retries": [r1, r2], "decisions_equal": True, "crossings": len(d1)},
+        "result_cache": {"hits": rstats["hits"], "misses": rstats["misses"],
+                         "hbm_entries": rstats["hbm_entries"], "hit_s": hit_s,
+                         "reservation_during_hit": peak_during_hit - held},
+        "micro_batch": {"hash32_executions": executions, "batched_requests": m1["batched"],
+                        "mm_hash_long_launches": micro_launches},
+        "mm_hash_long_launches": counts["mm_hash_long"],
+        "direct_s": {"q5_local": gp["q5_local_s"], "q3_local": gp["q3_local_s"],
+                     "run_q97_piece": gp["q97_piece_s"], "get_json_object": json_direct_s},
+        "stages_s": stages, "seconds": time.perf_counter() - t_phase}}))
+    return counts
+
+
+def serve_json_probe(device="cuda"):
+    """Why phase 21's JSON handler runs one call at a time on the card: one
+    SERVE_JSON_ROWS-row 8-path get_json_object call timed alone three times,
+    then four of them at once in threads (each answer checked against the
+    first).  ``python3 -c "import chip_smoke as c; c.serve_json_probe()"``."""
+    import threading
+
+    from spark_rapids_jni_tpu_torch import columnar as c
+    from spark_rapids_jni_tpu_torch.ops.get_json_object import get_json_object_multiple_paths
+
+    rows = json_batch(device, n=SERVE_JSON_ROWS)["col"].to_list()
+
+    def one():
+        col = c.strings_column(rows, device=device)
+        return [o.to_list() for o in get_json_object_multiple_paths(col, JSON_PATHS)]
+
+    alone = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        want = one()
+        alone.append(time.perf_counter() - t0)
+    got = [None] * 4
+
+    def run(k):
+        got[k] = one()
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    four_s = time.perf_counter() - t0
+    if any(g != want for g in got):
+        raise AssertionError("serve_json_probe: a concurrent call's answer differs")
+    print(json.dumps({"serve_json_probe": {"rows": SERVE_JSON_ROWS, "paths": len(JSON_PATHS),
+                                           "alone_s": alone, "four_at_once_s": four_s}}))
+    return alone, four_s
+
+
+def serve_alone(device="cuda"):
+    """Phase 21 by itself: builds the kernels, makes the inputs the earlier
+    phases would hand it (the SF10 q97 tables and their oracle, the plans
+    phase's q5 and q3 data with ``q5_local``'s and ``q3_local``'s rows,
+    SERVE_JSON_ROWS rows of phase 17's generator) and runs it on a one-rank
+    mesh.
+    ``python3 -c "import chip_smoke as c; c.serve_alone()"``."""
+    from spark_rapids_jni_tpu_torch.models import generate_q3_data, generate_q5_data
+    from spark_rapids_jni_tpu_torch.models.q3 import q3_local
+    from spark_rapids_jni_tpu_torch.models.q5 import q5_local
+    from spark_rapids_jni_tpu_torch.models.q97 import default_q97_capacity
+    from spark_rapids_jni_tpu_torch.models.tpcds import generate_q97_tables
+    from spark_rapids_jni_tpu_torch.parallel import one_rank_mesh
+
+    if device == "cuda":
+        build()
+    store, catalog = generate_q97_tables(sf=Q97_SF, seed=42)
+    q97 = {"store": store, "catalog": catalog, "oracle": q97_oracle(store, catalog),
+           "capacity": default_q97_capacity(len(store[0]) + len(catalog[0]), 1)}
+    q5 = generate_q5_data(sf=Q5_SF, seed=Q5_SEED)
+    q3 = generate_q3_data(sf=Q3_SF, seed=Q3_SEED)
+    gp = {"q5": q5, "q5_rows": q5_local(q5, device=device), "q3": q3,
+          "q3_rows": [tuple(r) for r in q3_local(q3, device=device)],
+          "q5_local_s": None, "q3_local_s": None, "q97_piece_s": None}
+    head = json_batch(device, n=SERVE_JSON_ROWS)["col"]
+    with one_rank_mesh(device) as mesh:
+        return serve_phase(mesh, q97, gp, head, device=device)
 
 
 def main() -> int:
@@ -5064,9 +5549,11 @@ def main() -> int:
     lap("ops_tail")
     with one_rank_mesh("cuda") as mesh:
         path_counts.append(observability(mesh, q97, json_head))
-    lap("observability")
+        lap("observability")
+        path_counts.append(serve_phase(mesh, q97, gp, json_head))
+    lap("serve")
     print(json.dumps({"phase_seconds": seconds, "total": sum(seconds.values())}))
-    for row in rows:  # the main path is now all fourteen paths: their launches add up
+    for row in rows:  # the main path is now all fifteen paths: their launches add up
         row["launches"] = sum(c[row["name"]] for c in path_counts)
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))

@@ -3,6 +3,8 @@ for the CPU."""
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Union
 
 import torch
@@ -18,3 +20,20 @@ def resolve(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return d
+
+
+# held across every CUDA graph capture of the port: a capture's entry
+# synchronizes the device and returns cached memory to the driver (room for
+# the graph's own pool), which the card refuses while another thread's
+# capture is open
+_capture_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def graph_capture(graph: "torch.cuda.CUDAGraph"):
+    """Capture ``graph`` over the ``with`` body (``torch.cuda.graph``) so that
+    several threads may use the card at once, as a serving engine's workers
+    do: one capture at a time, each in thread-local mode, so that other
+    threads may launch, copy and allocate while it is open."""
+    with _capture_lock, torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        yield

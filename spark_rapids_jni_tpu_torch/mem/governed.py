@@ -69,11 +69,12 @@ __all__ = [
 
 
 class _AttribHook:
-    """Deferred binding of the serving layer's ``note_reservation``
+    """Deferred binding of serve/attribution's ``note_reservation``
     (byte·seconds attribution at the one choke point every governed byte
-    passes through).  The port has no serving layer yet, so the hook stays
-    unbound and :meth:`note_reservation` is a no-op until one binds
-    ``_fn``."""
+    passes through: runtime, executor and shuffle-credit reservations
+    alike).  mem/ loads long before the serve package can, so the hook
+    resolves on the FIRST governed release instead of at import and caches
+    the bound function, as the JAX package's does."""
 
     __slots__ = ("_fn",)
 
@@ -82,8 +83,11 @@ class _AttribHook:
 
     def note_reservation(self, nbytes: int, held_ns: int) -> None:
         fn = self._fn
-        if fn is not None:
-            fn(nbytes, held_ns)
+        if fn is None:
+            from spark_rapids_jni_tpu_torch.serve.attribution import note_reservation
+
+            fn = self._fn = note_reservation
+        fn(nbytes, held_ns)
 
 
 _attrib = _AttribHook()

@@ -24,6 +24,7 @@ to their low 32 bits, and rely on int64 ``*`` and ``+`` wrapping modulo 2**64.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -46,7 +47,8 @@ XX_P3 = 0x165667B19E3779F9
 XX_P4 = 0x85EBCA77C2B2AE63
 XX_P5 = 0x27D4EB2F165667C5
 
-#: kernel launches per wrapper, counted only where a kernel is launched
+#: kernel launches per wrapper, counted only where a kernel is launched (under
+#: ``_launches_lock``: the serving engine launches from several worker threads)
 launches: Dict[str, int] = {
     "xx_hash_fixed8": 0,
     "mm_hash_long": 0,
@@ -58,9 +60,13 @@ launches: Dict[str, int] = {
 }
 
 
+_launches_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def signed64(x: int) -> int:
@@ -375,7 +381,8 @@ def _launch(name: str, fn_name: str, inputs: Sequence[torch.Tensor],
                 scalar, out.data_ptr(), n, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    launches[name] += 1
+    with _launches_lock:
+        launches[name] += 1
     return out
 
 

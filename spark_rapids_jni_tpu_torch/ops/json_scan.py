@@ -35,6 +35,7 @@ from typing import List, Sequence
 
 import torch
 
+from spark_rapids_jni_tpu_torch import device as _device
 from spark_rapids_jni_tpu_torch.ops import json_tokenizer as jt
 from spark_rapids_jni_tpu_torch.ops.get_json_object import (
     INDEX,
@@ -251,7 +252,7 @@ class _Scan:
         static = {f: getattr(self, f) for f in self._STEP_OUT}
         self._fpi = self._gpi = None
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with _device.graph_capture(graph):
             self._step()
             for f, t in static.items():
                 t.copy_(getattr(self, f))

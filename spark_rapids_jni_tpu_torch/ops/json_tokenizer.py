@@ -49,6 +49,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spark_rapids_jni_tpu_torch import device as _device
+
 __all__ = ["TokenStream", "tokenize", "MAX_DEPTH", "MAX_NUM_LEN"]
 
 MAX_DEPTH = 64  # json_parser.cuh:46 max_json_nesting_depth
@@ -553,7 +555,7 @@ class _Grammar:
         """One step as a CUDA graph over the current state tensors."""
         static = {f: getattr(self, f) for f in self._STEP_OUT}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with _device.graph_capture(graph):
             self.step()
             for f, v in static.items():
                 v.copy_(getattr(self, f))

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from spark_rapids_jni_tpu_torch import device as _device
 from spark_rapids_jni_tpu_torch.columnar.buckets import padded_buckets, strings_from_buckets
 from spark_rapids_jni_tpu_torch.columnar.column import StringColumn, strings_column
 
@@ -344,7 +345,7 @@ class _HostMachines:
     def capture(self):
         """One step as a CUDA graph over the state tensors (updated in place)."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with _device.graph_capture(graph):
             self.step()
         return graph
 

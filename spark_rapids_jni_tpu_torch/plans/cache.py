@@ -12,7 +12,9 @@
   build and execute seconds, are read through :meth:`PlanCache.stats`.
 
 Entries are LRU-bounded by the ``plan_cache_size`` flag (``config.py``, 64
-by default), unless a cache is built with its own ``maxsize``.
+by default), unless a cache is built with its own ``maxsize``.  The
+process-global cache's counters are the flight recorder's ``plan_cache``
+telemetry source, so anomaly dumps show compile churn beside governance.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from spark_rapids_jni_tpu_torch import config
+from spark_rapids_jni_tpu_torch.obs import flight as _flight
 
 __all__ = ["CompiledPlan", "PlanCache", "plan_cache"]
 
@@ -139,3 +142,6 @@ class PlanCache:
 
 #: the process-global cache every plan-compiled query shares
 plan_cache = PlanCache()
+
+# anomaly dumps carry the cache's counters next to serve and governor gauges
+_flight.register_telemetry_source("plan_cache", plan_cache.stats)

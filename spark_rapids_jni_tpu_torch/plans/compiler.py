@@ -14,8 +14,15 @@ before ``post``.
 The order tier runs here too: Window, Sort and TopK emitters sort rows by
 their canonical u64 ranks (plans/window.py), and a plan with a RangeExchange
 splits at it (:func:`split_exchange_plan`) into a map side that emits range
-partitions (:func:`emit_range_partitions`) and a local reduce plan.  The
-ragged calling convention is not ported yet.
+partitions (:func:`emit_range_partitions`) and a local reduce plan.
+
+Building an executor crosses ``seam(COMPILE, "plan:<signature>")`` and, once
+per Exchange node inside it, ``seam(COLLECTIVE, "all_to_all_shuffle")``:
+the JAX package crosses the shuffle's seam while it traces the program, once
+per compiled plan, so the port crosses it once per built executor, not on
+every run.  The ragged calling convention (:class:`RaggedProgram`,
+:func:`cached_ragged_compile`) closes a handler kernel over its page
+geometry for the serving tier's page-pool ticks (serve/ragged.py).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch.distributed as dist
 
 from spark_rapids_jni_tpu_torch import device as _device
 from spark_rapids_jni_tpu_torch.obs.phases import PhaseTimes
+from spark_rapids_jni_tpu_torch.obs.seam import COLLECTIVE, COMPILE, seam
 from spark_rapids_jni_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_size
 from spark_rapids_jni_tpu_torch.parallel.shuffle import all_to_all_shuffle, partition_of
 from spark_rapids_jni_tpu_torch.plans import ir
@@ -38,7 +46,8 @@ from spark_rapids_jni_tpu_torch.plans.cache import CompiledPlan, plan_cache
 __all__ = ["compile_plan", "cached_compile", "cached_executor", "input_signature",
            "output_names", "emitter", "plan_device", "segment_sum", "window_index", "DTYPES",
            "EXCHANGE_SOURCE", "split_exchange_plan", "emit_exchange_partitions",
-           "emit_range_partitions", "sample_range_splitters", "eval_post", "RANGE_PHASES"]
+           "emit_range_partitions", "sample_range_splitters", "eval_post", "RANGE_PHASES",
+           "RaggedProgram", "compile_ragged", "cached_ragged_compile"]
 
 DTYPES = {
     "bool": torch.bool,
@@ -516,8 +525,14 @@ def compile_plan(plan: ir.Plan, mesh, signature: Tuple,
             outputs[name] = _eval(expr, outputs)
         return tuple(outputs[n] for n in out_names)
 
-    return CompiledPlan(run, plan, mesh, signature, out_names,
-                        tuple(f"{t}.{f}" for _k, t, f in layout), plan_device(mesh, device))
+    with seam(COMPILE, f"plan:{ir.plan_signature(plan)}"):
+        for _node in ir.exchange_nodes(plan):
+            # the JAX package's trace-time crossing of the shuffle's seam
+            with seam(COLLECTIVE, "all_to_all_shuffle"):
+                pass
+        return CompiledPlan(run, plan, mesh, signature, out_names,
+                            tuple(f"{t}.{f}" for _k, t, f in layout),
+                            plan_device(mesh, device))
 
 
 def cached_executor(plan: ir.Plan, mesh, signature: Tuple,
@@ -724,3 +739,75 @@ def eval_post(plan: ir.Plan, sums: Dict[str, object]) -> Dict[str, np.ndarray]:
         env[name] = torch.as_tensor(_eval(expr, env))
     names = [n for n in output_names(plan) if n != "dropped"]
     return {n: env[n].numpy() for n in names}
+
+
+# ----------------------------------------------- ragged calling convention
+
+
+@dataclasses.dataclass(frozen=True)
+class RaggedProgram:
+    """The hashable identity of one page-pool-shaped program: the plan-cache
+    key the ragged serving path builds under (the analog of an
+    :class:`ir.Plan` value for a handler kernel).  ``geometry`` is a
+    :class:`columnar.pages.PageGeometry`; equal (kernel, geometry, out) ticks
+    share one cached program, so a long-lived engine's cache holds one entry
+    per PAGE GEOMETRY, not one per request shape.
+
+    ``kernel_key`` names the kernel (module-qualified by default): handler
+    registration is per engine, but the plan cache is process global, so the
+    key identifies the FUNCTION, not the handler name a second engine may
+    rebind.
+    """
+
+    kernel_key: str
+    geometry: object  # columnar.pages.PageGeometry (frozen, hashable)
+    out: str          # "rows" (row-aligned) | "riders" (per-rider vector)
+
+    @property
+    def name(self) -> str:
+        return f"ragged:{self.kernel_key}:{self.geometry.describe()}"
+
+
+def _ragged_signature(prog: RaggedProgram) -> Tuple:
+    """The flat input signature of the page-pool calling convention:
+    ``(data[total_rows] dtype, valid[total_rows] bool, rid[total_rows]
+    int32)``, entirely geometry-derived."""
+    g = prog.geometry
+    n = g.total_rows
+    return (("pages", "pool", "data", g.dtype, n),
+            ("pages", "pool", VALID_FIELD, "bool", n),
+            ("pages", "pool", "rid", "int32", n))
+
+
+def compile_ragged(prog: RaggedProgram, kernel: Callable) -> CompiledPlan:
+    """Build the program of ``kernel`` under the page-pool calling convention.
+
+    ``kernel(data, valid, rid, riders_cap)`` runs eagerly on the flat pool
+    tensors (``riders_cap`` is the geometry's, closed over here as the JAX
+    package bakes it into its trace); it returns ONE tensor, either
+    row-aligned (``out="rows"``: the executor scatters slices back per
+    rider) or per rider (``out="riders"``: padding rows carry ``rid ==
+    riders_cap``, so segment outputs are sized ``riders_cap + 1`` and drop
+    the tail).  Nothing is traced or compiled ahead of time, so the JAX
+    package's ``_try_aot_flat`` has no counterpart.  The program runs on the
+    device of the tensors it is given.  Uncached -- go through
+    :func:`cached_ragged_compile`.
+    """
+    riders_cap = prog.geometry.riders_cap
+
+    def run(data, valid, rid):
+        return (kernel(data, valid, rid, riders_cap),)
+
+    with seam(COMPILE, prog.name):
+        return CompiledPlan(run, prog, None, _ragged_signature(prog), ("out",),
+                            ("pool.data", "pool.__valid__", "pool.rid"))
+
+
+def cached_ragged_compile(prog: RaggedProgram, kernel: Callable) -> CompiledPlan:
+    """The ragged front door: one program per (kernel, page geometry, out
+    kind), via the SAME process-global plan cache as query plans, under the
+    JAX package's key ``(prog, None, signature)`` -- ragged programs show up
+    in the same hit, miss and trace counters."""
+    return plan_cache.get_or_compile(
+        (prog, None, _ragged_signature(prog)),
+        lambda: compile_ragged(prog, kernel))

@@ -35,7 +35,7 @@ from spark_rapids_jni_tpu_torch import device as _device
 from spark_rapids_jni_tpu_torch.mem.governed import ShuffleCapacityExceeded
 from spark_rapids_jni_tpu_torch.obs import flight as _flight
 from spark_rapids_jni_tpu_torch.obs.phases import PhaseTimes
-from spark_rapids_jni_tpu_torch.obs.seam import COLLECTIVE, seam
+from spark_rapids_jni_tpu_torch.obs.seam import COLLECTIVE, TRANSFER, seam
 from spark_rapids_jni_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     axis_group,
@@ -281,15 +281,19 @@ def execute_plan(mesh, plan: ir.Plan, tables: Tables,
     raises together and none is left waiting in a collective.  The launch
     crosses the ``COLLECTIVE`` seam, where a caller that runs plans on one
     rank from several threads serializes them
-    (``obs.seam.serialize_category``).  No governance here: callers bracket
+    (``obs.seam.serialize_category``), as
+    ``launch:plan:<signature>``; the upload crosses ``TRANSFER``
+    ``plan_upload:<name>`` and building an executor on a cache miss crosses
+    ``COMPILE`` ``plan:<signature>``, the JAX package's seams.  No governance here: callers bracket
     this (:func:`run_governed_plan`, or the model runners' own drivers).
     """
     with PHASES.phase("upload"):
         padded = pad_tables(plan, tables, _dp(mesh))
         compiled = cached_compile(plan, mesh, padded, device)
-        flat = plan_inputs(compiled, padded)
+        with seam(TRANSFER, f"plan_upload:{plan.name}"):
+            flat = plan_inputs(compiled, padded)
     t0 = time.perf_counter()
-    with PHASES.phase("launch"), seam(COLLECTIVE, f"launch:plan:{plan.name}"):
+    with PHASES.phase("launch"), seam(COLLECTIVE, f"launch:plan:{ir.plan_signature(plan)}"):
         outputs = {name: _host(v) for name, v in zip(compiled.out_names, compiled.fn(*flat))}
     plan_cache.record_execute(time.perf_counter() - t0)
     if int(outputs.get("dropped", 0)) > 0:
@@ -367,9 +371,10 @@ def run_governed_plan(
 
     With the ``plan_optimizer`` flag set, the stats of ``tables`` are
     recorded (models/tables.py) and the plan is rewritten first
-    (plans/optimizer.py).  The result cache (the ``serve_result_cache``
-    flag) is not ported yet: that flag raises ``NotImplementedError`` rather
-    than being ignored.
+    (plans/optimizer.py).  With the ``serve_result_cache`` flag set, the
+    governed result cache (plans/rcache.py) is consulted before admission: a
+    hit returns the cached outputs without a reservation, a retry bracket or
+    a launch, and a computed result is stored after the bracket.
     """
     from spark_rapids_jni_tpu_torch.mem.governed import (
         agreed_outcome,
@@ -378,10 +383,6 @@ def run_governed_plan(
         task_context,
     )
 
-    if config.get("serve_result_cache"):
-        raise NotImplementedError(
-            "run_governed_plan: the 'serve_result_cache' flag is set, but the port "
-            "has no A.15 (plans/rcache.py) yet")
     dp = _dp(mesh)
     group = None if mesh is None else axis_group(mesh, DATA_AXIS)
     if budget is None:
@@ -394,6 +395,20 @@ def run_governed_plan(
 
         _tabreg.observe_tables(tables)
         plan = optimize_plan(plan)
+    # the result cache consults BEFORE admission: a hit costs a fingerprint
+    # pass over the raw host tables -- never a reservation, a retry bracket
+    # or a launch.  Fingerprinted here, before the dim upload below moves
+    # anything to the device; the canonicalized plan keys it
+    ckey = cdeps = None
+    if config.get("serve_result_cache"):
+        from spark_rapids_jni_tpu_torch.obs import trace as _trace
+        from spark_rapids_jni_tpu_torch.plans.rcache import plan_result_key, result_cache
+
+        ckey, cdeps = plan_result_key(plan, dp, tables)
+        hit = result_cache.lookup(ckey)
+        if hit is not None:
+            with _trace.maybe_span(_trace.SPAN_CACHE, extra=f"plan:{plan.name}"):
+                return hit
     scans = ir.scan_tables(plan)
     tables = _upload_dims(plan, tables, mesh, device)
     # ordered row vectors do not combine by addition, and a row-halved
@@ -443,4 +458,10 @@ def run_governed_plan(
             group=group,
         )
     _note_plan_run(plan.name, presplit, inline_splits[0], max_split_depth)
+    if ckey is not None:
+        from spark_rapids_jni_tpu_torch.plans.rcache import result_cache
+
+        # put() revalidates cdeps against the live version registry: a table
+        # bumped while this plan computed drops the insert
+        result_cache.put(ckey, out, cdeps, label=plan.name)
     return out

@@ -15,7 +15,7 @@ to its valid rows (:func:`_slice_order_output`), the ordered combine
 (:func:`combine_ordered_outputs`) and the single-process oracle
 (:func:`run_range_plan_local`).  The peer-to-peer shuffle service, the
 executor-side shuffle handlers and the hash exchange's drivers come with the
-rest of the serving layer (ROADMAP A.15).
+rest of the serving layer (ROADMAP A.15b).
 """
 
 from __future__ import annotations

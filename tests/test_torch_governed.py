@@ -459,9 +459,9 @@ def test_governed_runner_matches_jax(query, tight):
 
 @pytest.mark.parametrize("flag", ["plan_optimizer", "serve_result_cache"])
 def test_governed_plan_refuses_unported_flags(gov, flag):
-    """The result cache is not ported yet, so its flag raises rather than
-    being ignored; the plan optimizer is, and its flag rewrites the plan
-    with the same answer."""
+    """Both flags are ported: the plan optimizer's rewrites the plan with the
+    same answer, and with the result cache's the second call is a cache hit
+    equal to the first, with no launch."""
     data = generate_q3_data(sf=0.01, seed=1)
     plan = q3.q3_plan(**q3._geometry(data))
     tables = q3._q3_tables(q3._facts(data), q3._dims(data))
@@ -478,9 +478,21 @@ def test_governed_plan_refuses_unported_flags(gov, flag):
         for k in off:
             np.testing.assert_array_equal(on[k], off[k])
         return
-    with config.override(**{flag: True}):
-        with pytest.raises(NotImplementedError, match=flag):
-            run()
+    from spark_rapids_jni_tpu_torch.plans.rcache import result_cache
+
+    result_cache.reset_for_tests()
+    try:
+        with config.override(**{flag: True}):
+            first = run()
+            execs = plan_cache.stats()["execute_calls"]
+            second = run()
+        assert plan_cache.stats()["execute_calls"] == execs
+        assert result_cache.stats()["hits"] == 1
+        assert list(second) == list(first)
+        for k in first:
+            np.testing.assert_array_equal(second[k], first[k])
+    finally:
+        result_cache.reset_for_tests()
 
 
 def test_uploaded_dims_pass_through_with_the_jax_signature():

@@ -377,6 +377,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spark_rapids_jni_tpu_torch.obs.trace, spark_rapids_jni_tpu_torch.version\n"
         "from spark_rapids_jni_tpu_torch.ops import parse_uri_host, percentile_from_histogram\n"
         "from spark_rapids_jni_tpu_torch.obs import Profiler, FaultInjector, install_from_env\n"
+        "import spark_rapids_jni_tpu_torch.columnar.frames\n"
+        "import spark_rapids_jni_tpu_torch.columnar.pages\n"
+        "import spark_rapids_jni_tpu_torch.serve.session, spark_rapids_jni_tpu_torch.serve.queue\n"
+        "import spark_rapids_jni_tpu_torch.serve.metrics\n"
+        "import spark_rapids_jni_tpu_torch.serve.attribution\n"
+        "import spark_rapids_jni_tpu_torch.serve.controller\n"
+        "import spark_rapids_jni_tpu_torch.serve.ragged\n"
+        "import spark_rapids_jni_tpu_torch.serve.executor\n"
+        "import spark_rapids_jni_tpu_torch.plans.rcache\n"
+        "from spark_rapids_jni_tpu_torch.plans.compiler import cached_ragged_compile\n"
+        "from spark_rapids_jni_tpu_torch.serve import ServingEngine, RaggedSpec, Knob\n"
         "sys.path.insert(0, 'tests')\n"
         "import uri_oracle  # the parse_url oracle the card's smoke run imports\n"
         "import torch_mesh_ranks  # what spawned gloo ranks import\n"

@@ -337,6 +337,18 @@ def test_run_governed_plan_gate_is_bit_identical():
 
 
 def test_result_cache_flag_still_raises():
-    with config.override(serve_result_cache=True):
-        with pytest.raises(NotImplementedError, match="serve_result_cache"):
-            run_governed_plan(None, _two_join_plan(), _facts(), device="cpu")
+    """The result cache is ported: with its flag on, the second call of the
+    optimized plan is a cache hit equal to the first."""
+    from spark_rapids_jni_tpu_torch.plans.rcache import result_cache
+
+    result_cache.reset_for_tests()
+    try:
+        with config.override(serve_result_cache=True, plan_optimizer=True):
+            first = run_governed_plan(None, _two_join_plan(), _facts(), device="cpu")
+            second = run_governed_plan(None, _two_join_plan(), _facts(), device="cpu")
+        assert result_cache.stats()["hits"] == 1
+        assert list(second) == list(first)
+        for k in first:
+            np.testing.assert_array_equal(second[k], first[k])
+    finally:
+        result_cache.reset_for_tests()
