@@ -218,7 +218,8 @@ port package beside it.  Otherwise it:
    recorder's STATE records are there, that ``mm_hash_long`` is among the
    device events as often as its counter says, and that every device event
    lies inside its call's host range (each window's export placed with
-   that window's clock anchor); prints each call's device busy share
+   that window's clock anchor and the clock rate its warm-up and closing
+   marks show); prints each call's device busy share
    (the union of its kernels over its wall); then runs two governed q97
    calls under the seeded ``pressure_storm_config``, whose answers must
    equal the unfaulted one and whose injector decisions must be equal; and
@@ -226,7 +227,7 @@ port package beside it.  Otherwise it:
 21. serves on the card through the port's ``ServingEngine`` (built-in
    handlers, 4 workers, a queue of 64) over a one-rank NCCL mesh, with three
    sessions (priorities 0, 1, 2) and 8 client threads: q97 at SF10 twice,
-   q5, q3 and 32 ``get_json_object`` requests (1,024 rows of phase 17's
+   q5, q3 and 16 ``get_json_object`` requests (1,024 rows of phase 17's
    generator, its 8 paths), then 512 ``hash32`` requests (int64 rows
    log-uniform over 1-2**20, numpy seed 79) through the micro-batcher and
    the same 512 with ``serve_ragged`` (256-row pages, 64 pages, 64
@@ -244,8 +245,30 @@ port package beside it.  Otherwise it:
    least once per micro-batch execution and per ragged tick, and the ragged
    programs built must be among the page geometries the ticks launched at.
    Prints ``serve_stage`` lines, ``serve_launches`` and the ``serve`` line;
+22. serves through the port's ``Supervisor`` over 4 executor processes that
+   share the card (``worker_cfg`` ``{"device": "cuda", "budget_bytes": the
+   free memory at spawn over 1.25 over 4, "workers": 2}``; the parent
+   empties its allocator's cache first): q97 at SF10 as a real
+   cross-process hash shuffle over 4 map shards, plain and then with the
+   adaptive exchange; q67 at SF10 (the order phase's batch) as a range
+   shuffle; 256 ``hash32`` requests (int64 rows log-uniform over 1-2**20,
+   numpy seed 83) from 8 client threads; then a second cluster under
+   ``chaos_shuffle_config`` (corrupt, truncated and stalled frames, and
+   executor 0's first incarnation SIGKILLed at a seeded budget crossing)
+   running q97 until that executor was killed and respawned.  Holds q97 to
+   the earlier phases' oracle and ``run_exchange_plan_local`` on the card,
+   q67 to the order phase's answer, every ``hash32`` answer to the plain
+   version's bits and ``mm_hash_long`` to its plain version at a map
+   shard's shape; the clean cluster must spawn exactly 4 executors and
+   dispatch no lease twice, the chaos cluster complete every lease once,
+   every executor run on the card and launch, and the card's processes stay
+   within its memory.  The executors write their ``mm_hash_long`` launches to
+   stats files, which the parent adds up.  Prints ``supervisor_launches``
+   and the ``supervisor`` line (spawn-to-HELLO seconds, per handler
+   latencies, each shuffle's span breakdown, the data plane's bytes, frames,
+   CRC failures and retries, respawns, re-dispatches, peaks, launches);
    then the phases' seconds, the card's name and power limit, the
-   ``kernels`` line (all seven kernels, their launches over the fifteen
+   ``kernels`` line (all seven kernels, their launches over the sixteen
    paths) and, last, the ``ok`` line.
 
 The governed phase also holds every call's device peak over its reservation
@@ -2821,7 +2844,7 @@ N_CAST = 1 << 24  # rows of the FLOAT64 column (128 MiB) and of the integer stri
 N_CAST_MID = 1 << 22  # rows of the decimal, format_float and base-cast calls
 N_CAST_CORPUS = 1 << 20  # rows of the adversarial parse corpus and the ANSI column
 CAST_SAMPLE = 1 << 18  # rows of each call held against the CPU run (strided)
-CAST_REPS, CAST_WARMUP = 5, 1
+CAST_REPS, CAST_WARMUP = 3, 0  # the path's own call warms each one up
 
 
 def _digits(mag, width):
@@ -3406,7 +3429,7 @@ ORDER_BRANDS = 1000  # brands: about 10,000 (category, brand) runs
 ORDER_K = 100  # q67's rk <= 100, and the top-k's and q64's k
 ORDER_SHARDS = 4  # map shards and range partitions of the multi-shard runs
 ORDER_SMALL = 1 << 20  # rows of the runs held against the CPU run
-ORDER_REPS = 2  # host-to-host calls timed per call, after the path's first
+ORDER_REPS = 1  # host-to-host calls timed per call, after the path's first
 ORDER_SEED = 67
 
 
@@ -3724,12 +3747,13 @@ def order(gp):
     range driver, the multi-shard and governed runs, the path with the
     counters at 0, the checks, the optimizer on the plans phase's q5 and q3,
     the times; prints the ``order`` line and returns the path's launch
-    counts."""
+    counts and q67's batch and answer (phase 22 shuffles the same batch)."""
     t0 = time.perf_counter()
     b = order_batch(ORDER_ROWS)
     gen_s = time.perf_counter() - t0
     counts, outs, wire, first_s = order_path(b)
     checks = check_order(b, outs, wire)
+    q67 = {"tables": b["q67"], "want": outs["q67"]}
     del outs
     checks["cpu_check"] = check_order_small()
     checks["framed_sum_float_bits"] = check_framed_sum_bits()
@@ -3741,7 +3765,7 @@ def order(gp):
         "launches": counts, "wire_bytes": wire, "checks": checks,
         "calls": time_order(b, first_s), "optimizer": order_optimizer(gp),
         "batch_gen_s": gen_s}}))
-    return counts
+    return counts, q67
 
 
 # ---- the JSON family ----------------------------------------------------------
@@ -4780,12 +4804,12 @@ def ops_tail(rates, device="cuda", sizes=None):
 OBS_TASK = 970  # the task id of phase 20's governed q97 calls
 OBS_FAULT_SEED = 4  # pressure_storm_config's seed: its first two draws inject
 _DEVICE_CATS = {"cuda": ("kernel", "gpu_memcpy", "gpu_memset"), "cpu": ("cpu_op",)}
-# torch.profiler's device timestamps drift ahead of the host's monotonic
-# clock within a window: the last records of a 2.9 s JSON window landed up
-# to 2.4 ms (about 850 ppm) past the host range that synchronized on them
-# (H100, torch 2.11.0+cu128).  A device event of a call may lie this far
-# outside its host range: OBS_SLACK_US, plus OBS_DRIFT_PPM (a bit over twice
-# the drift seen) of the window's elapsed time
+# torch.profiler's clock runs apart from the host's monotonic clock within a
+# window, at a rate that differs from process to process (8 to 5,557 ppm seen
+# on an H100 with torch 2.11.0+cu128); the converter fits each window's rate
+# from the profiler's warm-up and closing marks (obs/convert.py).  A device
+# event of a call may lie this far outside its host range after that fit:
+# OBS_SLACK_US, plus OBS_DRIFT_PPM of the window's elapsed time
 OBS_SLACK_US, OBS_DRIFT_PPM = 100.0, 2000.0
 
 
@@ -4874,9 +4898,10 @@ def check_trace(data, dev_dir, counts, device):
     the STATE records are there; the device events include mm_hash_long
     (CUPTI names the kernel, ``(anonymous namespace)::mm_hash_long_kernel``,
     as often as its counter says) and each lies inside its call's host
-    range (or the profiler's warm-up range that opens each window), widened
-    by OBS_SLACK_US and OBS_DRIFT_PPM of the window's time for the device
-    clock's drift, each window's export placed with its own clock anchor.  Prints
+    range (or the profiler's warm-up and closing marks that open and close
+    each window), widened by OBS_SLACK_US and OBS_DRIFT_PPM of the window's
+    time for the device clock's drift, each window's export placed with its
+    own clock anchor and the clock rate its marks show.  Prints
     and returns the trace's numbers, with the device's busy share of each
     call's window (the union of kernel intervals over its wall), before any
     check raises."""
@@ -4907,9 +4932,10 @@ def check_trace(data, dev_dir, counts, device):
     host = [e for e in trace if e.get("pid") == 0 and e.get("ph") == "X"]
     windows = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in host
                if e["name"].startswith("call:")}
-    # each profiler window opens with the profiler's own warm-up launches
+    # each profiler window opens with the profiler's own warm-up launches and
+    # closes with its clock mark's launch
     warmups = [(e["ts"], e["ts"] + e["dur"]) for e in host
-               if e["name"] == profiler.WARMUP_RANGE]
+               if e["name"] in (profiler.WARMUP_RANGE, profiler.CLOSING_RANGE)]
     ranges = sorted({e["name"].split(":")[0] if e["name"].startswith("reserve:") else e["name"]
                      for e in host})
     counters = sorted({e["name"] for e in events if e["type"] == "counter"})
@@ -4956,6 +4982,7 @@ def check_trace(data, dev_dir, counts, device):
             "q97_kernel_names": q97_kernels, "device_exports": len(os.listdir(dev_dir)),
             "calls": per_call, "warmup_ranges": len(warmups), "windows": len(anchors),
             "anchor_offsets_ns": offsets,
+            "clock_rates_ppm": [r * 1e6 for r in merged.get("deviceClockRates", [])],
             "drift_ppm_allowed": OBS_DRIFT_PPM, "slack_us": OBS_SLACK_US,
             "outside": len(outside),
             "outside_head": [(d["name"][:60], d["ts"], d["dur"]) for d in outside[:3]],
@@ -5032,7 +5059,7 @@ SERVE_CLIENTS = 8  # client threads, each waiting on its answer before its next 
 SERVE_PRIORITIES = (0, 1, 2)  # the three sessions' priorities
 SERVE_HASH_REQS = 512  # hash32 requests (micro-batcher, then the same ones ragged)
 SERVE_HASH_MAX_ROWS = 1 << 20  # their int64 rows are log-uniform over 1..this
-SERVE_JSON_REQS = 32  # get_json_object requests, each over SERVE_JSON_ROWS rows and 8 paths
+SERVE_JSON_REQS = 16  # get_json_object requests, each over SERVE_JSON_ROWS rows and 8 paths
 SERVE_JSON_ROWS = 1024
 SERVE_STORM_REQS = 64  # hash32 requests under the RetryOOM storm (the first payloads)
 SERVE_STORM = {"seed": SERVE_SEED,
@@ -5125,9 +5152,9 @@ def _hash_plain(payloads, device):
 def _require_same_arrays(what, got, want):
     for i, (g, w) in enumerate(zip(got, want)):
         if g.dtype != w.dtype or not np.array_equal(g, w):
-            raise AssertionError(f"phase 21 {what}: answer {i} differs")
+            raise AssertionError(f"{what}: answer {i} differs")
     if len(got) != len(want):
-        raise AssertionError(f"phase 21 {what}: {len(got)} answers for {len(want)}")
+        raise AssertionError(f"{what}: {len(got)} answers for {len(want)}")
 
 
 def _engine(gov, budget, mesh, **kw):
@@ -5198,7 +5225,7 @@ def serve_phase(mesh, q97, gp, json_head, device="cuda"):
     """Phase 21: the port's ServingEngine on ``mesh`` (a one-rank NCCL mesh)
     with its built-in handlers, 4 workers and a queue of 64 (the flags'
     defaults), three sessions (priorities 0, 1, 2) and 8 client threads:
-    q97 at SF10 twice, q5 and q3 on the plans phase's data and 32
+    q97 at SF10 twice, q5 and q3 on the plans phase's data and 16
     get_json_object requests in one shuffled stream, then 512 hash32
     requests through the micro-batcher; a q97
     under half its working set on an engine of that budget (it must split and
@@ -5207,7 +5234,7 @@ def serve_phase(mesh, q97, gp, json_head, device="cuda"):
     seeded RetryOOM storm on handle:hash32, twice; and q3's plan twice
     through run_governed_plan with serve_result_cache on.  Every answer is
     held to its reference; prints the ``serve`` line and returns the phase's
-    launch counts."""
+    launch counts and the q97 times phase 22 stands beside."""
     from spark_rapids_jni_tpu_torch import columnar as c
     from spark_rapids_jni_tpu_torch import config
     from spark_rapids_jni_tpu_torch.mem import BudgetedResource, MemoryGovernor, task_context
@@ -5286,7 +5313,7 @@ def serve_phase(mesh, q97, gp, json_head, device="cuda"):
             elif handler == "hash32":
                 micro[id(payload)] = ans
         micro = [micro[id(p)] for p in payloads]
-        _require_same_arrays("hash32 (micro-batch) against the plain version", micro, plain)
+        _require_same_arrays("phase 21 hash32 (micro-batch) against the plain version", micro, plain)
         out["mixed"] = {**_serve_stats(reqs, qresults), **_serve_stats(hreqs, hresults)}
         # 2. q97 on an engine whose budget is half its working set
         t0 = time.perf_counter()
@@ -5321,7 +5348,7 @@ def serve_phase(mesh, q97, gp, json_head, device="cuda"):
             seam._set_injector(None)
             eng.shutdown()
         ragged = [a for a, _t0, _t1 in rresults]
-        _require_same_arrays("hash32 (ragged) against the micro-batch answers", ragged, micro)
+        _require_same_arrays("phase 21 hash32 (ragged) against the micro-batch answers", ragged, micro)
         ticks = eng.metrics.get("ragged_launches")
         ragged_launches = hash_cuda.launches["mm_hash_long"] - before
         geoms, programs = _ragged_geometries(ragged_seen, seam)
@@ -5342,8 +5369,8 @@ def serve_phase(mesh, q97, gp, json_head, device="cuda"):
         t0 = time.perf_counter()
         storm = [_storm_run(gov, budget, mesh, payloads[:SERVE_STORM_REQS]) for _ in range(2)]
         (a1, d1, r1), (a2, d2, r2) = storm
-        _require_same_arrays("hash32 under the storm", a1, micro[:SERVE_STORM_REQS])
-        _require_same_arrays("hash32 under the second storm", a2, micro[:SERVE_STORM_REQS])
+        _require_same_arrays("phase 21 hash32 under the storm", a1, micro[:SERVE_STORM_REQS])
+        _require_same_arrays("phase 21 hash32 under the second storm", a2, micro[:SERVE_STORM_REQS])
         injected = sum(1 for d in d1 if d[2] != "ok")
         if d1 != d2 or not injected or r1 != injected or r2 != injected:
             raise AssertionError(f"phase 21 storm: decisions equal {d1 == d2}, injected "
@@ -5402,7 +5429,8 @@ def serve_phase(mesh, q97, gp, json_head, device="cuda"):
         "direct_s": {"q5_local": gp["q5_local_s"], "q3_local": gp["q3_local_s"],
                      "run_q97_piece": gp["q97_piece_s"], "get_json_object": json_direct_s},
         "stages_s": stages, "seconds": time.perf_counter() - t_phase}}))
-    return counts
+    return counts, {"phase21_q97_engine_p50_ms": out["mixed"]["q97"]["p50_ms"],
+                    "run_q97_piece_s": gp["q97_piece_s"]}
 
 
 def serve_json_probe(device="cuda"):
@@ -5474,6 +5502,542 @@ def serve_alone(device="cuda"):
         return serve_phase(mesh, q97, gp, head, device=device)
 
 
+# ---- phase 22: the supervised cluster on one card ------------------------------
+
+SUP_WORKERS = 4  # executor processes, all on the one card
+SUP_ENGINE_WORKERS = 2  # worker threads of each executor's engine
+SUP_SEED = 83  # numpy seed of the hash32 payloads and of the traffic's order
+SUP_CLIENTS = 8  # client threads, each waiting on its answer before its next submit
+SUP_HASH_REQS = 256  # hash32 requests; int64 rows log-uniform over 1..SERVE_HASH_MAX_ROWS
+SUP_Q97_CAPACITY = 64  # q97_plan's in-mesh capacity: unused once the exchange is split off
+SUP_CHAOS_SEED = 14  # chaos_shuffle_config's seed base (seed*1000 + worker*17 + incarnation)
+SUP_KILL_PCT = 50.0  # per budget crossing of executor 0's first incarnation (it dies once)
+SUP_CHAOS_ROUNDS = 3  # chaos q97 runs at most, until the armed executor has been killed
+SUP_LEASE_HANG_S = 300.0  # a shard piece at SF10 is seconds of work, far from a hang
+SUP_STATS_S = 0.25  # period of each executor's stats file
+
+
+def _q97_dicts(store, catalog):
+    return {"store": {"cust": store[0], "item": store[1]},
+            "catalog": {"cust": catalog[0], "item": catalog[1]}}
+
+
+def supervised_worker(engine, stats_dir, device="cuda"):
+    """Phase 22's executor process (``Supervisor(factory="chip_smoke:
+    supervised_worker")``): the built-in handlers (``hash32`` is
+    ``mm_hash_long`` on the card), q97's exchange as a hash-shuffle piece
+    (plain, and adaptive for the run that asks for it), q67 as a
+    range-shuffle piece, on the engine's device, which must be ``device``.
+    A daemon thread writes the process's launch counts, the shuffle
+    transport's counters and its memory peaks to ``stats_dir`` every
+    SUP_STATS_S seconds and at exit, so the parent can add up what the
+    executors launched (a killed one keeps its last file)."""
+    import atexit
+    import os
+    import threading
+
+    from spark_rapids_jni_tpu_torch import config
+    from spark_rapids_jni_tpu_torch.models import q67_plan
+    from spark_rapids_jni_tpu_torch.models.q97 import q97_plan
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+    from spark_rapids_jni_tpu_torch.serve import QueryHandler, register_builtin_handlers
+    from spark_rapids_jni_tpu_torch.serve import shuffle
+
+    if engine.device.type != torch.device(device).type:
+        raise RuntimeError(f"executor engine on {engine.device}, phase 22 asked {device}")
+    register_builtin_handlers(engine)
+    plain = shuffle.make_shuffle_handler(q97_plan(SUP_Q97_CAPACITY))
+    engine.register(QueryHandler(name="q97_shuffle", fn=plain, nbytes_of=lambda p: 0))
+    # the adaptive exchange is a per-process flag that every piece reads once
+    # at its start: held on from the first adaptive piece in this process
+    # until the last one ends (the adaptive run has the cluster to itself)
+    users, lock = [0], threading.Lock()
+
+    def adaptive(payload, ctx):
+        with lock:
+            if users[0] == 0:
+                config.set("serve_adaptive_exchange", True)
+            users[0] += 1
+        try:
+            return plain(payload, ctx)
+        finally:
+            with lock:
+                users[0] -= 1
+                if users[0] == 0:
+                    config.set("serve_adaptive_exchange", False)
+
+    engine.register(QueryHandler(name="q97_shuffle_adaptive", fn=adaptive,
+                                 nbytes_of=lambda p: 0))
+    engine.register(QueryHandler(
+        name="q67_shuffle",
+        fn=shuffle.make_range_shuffle_handler(q67_plan(ORDER_K, ORDER_ITEMS)),
+        nbytes_of=lambda p: 0))
+    path = os.path.join(stats_dir, f"worker_{os.getpid()}.json")
+    write_lock = threading.Lock()  # the stats thread and the exit hook
+
+    def write():
+        with hash_cuda._launches_lock:
+            launches = dict(hash_cuda.launches)
+        stats = {"pid": os.getpid(), "device": str(engine.device), "launches": launches,
+                 "transport": shuffle.service().snapshot()["counters"]}
+        if engine.device.type == "cuda":
+            stats["max_allocated"] = torch.cuda.max_memory_allocated()
+            stats["max_reserved"] = torch.cuda.max_memory_reserved()
+        with write_lock:
+            with open(path + ".tmp", "w") as f:
+                json.dump(stats, f)
+            os.replace(path + ".tmp", path)
+
+    def loop():
+        while True:
+            write()
+            time.sleep(SUP_STATS_S)
+
+    write()
+    atexit.register(write)
+    threading.Thread(target=loop, daemon=True, name="phase22-stats").start()
+
+
+def _worker_stats(stats_dir):
+    import glob
+    import os
+
+    out = []
+    for p in sorted(glob.glob(os.path.join(stats_dir, "worker_*.json"))):
+        with open(p) as f:
+            out.append(json.load(f))
+    return out
+
+
+class _AppMemory:
+    """The card's compute processes' memory (``nvidia-smi
+    --query-compute-apps``) sampled every half second in a thread: the
+    largest sum over one sample, and each pid's largest reading, in MiB.
+    Samples nothing when ``on`` is false (a rehearsal on the CPU)."""
+
+    def __init__(self, on=True):
+        import threading
+
+        self.on = on
+        self.peak_sum, self.per_pid, self.samples = 0, {}, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="phase22-mem")
+
+    def _run(self):
+        while not self._stop.wait(0.5):
+            res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=30)
+            rows = [r.split(",") for r in res.stdout.strip().splitlines() if "," in r]
+            used = {int(pid): int(mib) for pid, mib in rows}
+            self.samples += 1
+            self.peak_sum = max(self.peak_sum, sum(used.values()))
+            for pid, mib in used.items():
+                self.per_pid[pid] = max(self.per_pid.get(pid, 0), mib)
+
+    def __enter__(self):
+        if self.on:
+            self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        if self.on:
+            self._thread.join(timeout=60)
+
+
+class _HelloWatch:
+    """Polls a supervisor's executors every 10 ms in a thread: for each
+    (worker, incarnation), the seconds from its spawn (the supervisor's
+    construction for incarnation 0, else the first poll that saw it) to the
+    first poll that saw it alive, i.e. its HELLO."""
+
+    def __init__(self, t0):
+        import threading
+
+        self.t0, self.first, self.alive = t0, {}, {}
+        self.sup = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="phase22-hello")
+
+    def watch(self, sup):
+        self.sup = sup
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            now = time.perf_counter()
+            for wid, w in self.sup.snapshot()["workers"].items():
+                key = f"{wid}.{w['incarnation']}"
+                self.first.setdefault(key, self.t0 if w["incarnation"] == 0 else now)
+                if w["state"] == "alive":
+                    self.alive.setdefault(key, now)
+
+    def wait_all(self, timeout=120.0):
+        """Block until every executor is alive."""
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            snap = self.sup.snapshot()["workers"]
+            if sum(1 for w in snap.values() if w["state"] == "alive") == SUP_WORKERS:
+                return
+            time.sleep(0.01)
+        raise AssertionError(f"phase 22: executors not alive after {timeout} s: {snap}")
+
+    def seconds(self):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        return {k: self.alive[k] - self.first[k] for k in sorted(self.alive)}
+
+
+def _supervisor(stats_dir, share, device, chaos=None):
+    from spark_rapids_jni_tpu_torch.models import q67_plan
+    from spark_rapids_jni_tpu_torch.models.q97 import q97_plan
+    from spark_rapids_jni_tpu_torch.serve import HandlerSpec, ShuffleSpec, Supervisor
+    from spark_rapids_jni_tpu_torch.serve.shuffle import (
+        combine_exchange_outputs,
+        combine_ordered_outputs,
+        make_range_split,
+        scan_table_names,
+        split_tables_n,
+    )
+
+    sup = Supervisor(
+        workers=SUP_WORKERS, factory="chip_smoke:supervised_worker",
+        factory_kwargs={"stats_dir": stats_dir, "device": device},
+        worker_cfg={"device": device, "budget_bytes": share,
+                    "workers": SUP_ENGINE_WORKERS},
+        chaos=chaos, queue_size=2 * SUP_HASH_REQS, default_deadline_s=900.0,
+        lease_hang_s=SUP_LEASE_HANG_S, lease_max_dispatches=6)
+    plan = q97_plan(SUP_Q97_CAPACITY)
+    scans = scan_table_names(plan)
+    for name in ("q97_shuffle", "q97_shuffle_adaptive"):
+        sup.register(ShuffleSpec(name, split_n=lambda p, n: split_tables_n(p, scans, n),
+                                 combine=combine_exchange_outputs(plan),
+                                 fanout=SUP_WORKERS))
+    q67 = q67_plan(ORDER_K, ORDER_ITEMS)
+    # the splitters are sampled here, in the supervisor's process, on the card
+    sup.register(ShuffleSpec("q67_shuffle", split_n=make_range_split(q67, device=device),
+                             combine=combine_ordered_outputs(q67), fanout=SUP_WORKERS))
+    sup.register(HandlerSpec("hash32", nbytes_of=lambda p: 16 * len(p)))
+    return sup
+
+
+def _sup_clients(sup, sess, reqs):
+    """``reqs`` [(handler, payload)] from SUP_CLIENTS threads, each waiting on
+    its answer; returns (answer, seconds from submit to answer) per request."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_rapids_jni_tpu_torch.serve import Backpressure
+
+    def one(i):
+        handler, payload = reqs[i]
+        t0 = time.perf_counter()
+        while True:
+            try:
+                resp = sup.submit(sess, handler, payload)
+                break
+            except Backpressure as e:
+                time.sleep(e.retry_after_s)
+        return resp.result(timeout=900), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(SUP_CLIENTS) as pool:
+        return list(pool.map(one, range(len(reqs))))
+
+
+def _one(sup, sess, handler, payload):
+    """One request; returns its answer, its seconds and its rid."""
+    t0 = time.perf_counter()
+    resp = sup.submit(sess, handler, payload)
+    out = resp.result(timeout=900)
+    return out, time.perf_counter() - t0, resp.task_id
+
+
+def _breakdown(sup, rid):
+    """Where one shuffle request's time went, from the live timeline's span
+    waterfall (serve/telemetry.py, obs/trace.py): per executor process, the
+    map side (its compute span's start to its first transport span), the
+    fetches (the transport spans' sum and their span), and the reduce (the
+    last transport span's end to the compute span's end), in ms; and the
+    supervisor's queue span of each child (its dispatch order).  Spans the
+    timeline has not seen close within 10 s are left out; ``complete`` says
+    whether it saw them all close."""
+    from spark_rapids_jni_tpu_torch.obs import trace
+    from spark_rapids_jni_tpu_torch.serve import fetch_view
+
+    deadline = time.perf_counter() + 10.0
+    while True:
+        view = fetch_view(*sup.telemetry_endpoint())
+        rec = trace.waterfall(view["timeline"]["events"]).get(str(rid))
+        if (rec is not None and rec["complete"]) or time.perf_counter() > deadline:
+            break
+        time.sleep(0.1)
+    if rec is None:
+        return None
+    import os
+
+    by_pid = {}
+    for x in rec["spans"]:
+        if x.get("dur_ms") is not None:
+            by_pid.setdefault(x["pid"], []).append(x)
+    out = {"complete": rec["complete"],
+           "children_queue_ms": sorted(x["dur_ms"] for x in by_pid.get(os.getpid(), [])
+                                       if x["kind"] == "queue")}
+    for pid, spans in by_pid.items():
+        comp = [x for x in spans if x["kind"] == "compute"]
+        tr = sorted((x for x in spans if x["kind"] == "transport"), key=lambda x: x["t0"])
+        if pid == os.getpid() or not comp:
+            continue
+        c0, c1 = comp[0]["t0"], comp[0]["t0"] + comp[0]["dur_ms"] / 1e3
+        line = {"compute_ms": comp[0]["dur_ms"]}
+        if tr:
+            t_end = max(x["t0"] + x["dur_ms"] / 1e3 for x in tr)
+            line.update(map_ms=(tr[0]["t0"] - c0) * 1e3,
+                        fetch_sum_ms=sum(x["dur_ms"] for x in tr),
+                        fetch_span_ms=(t_end - tr[0]["t0"]) * 1e3,
+                        reduce_ms=(c1 - t_end) * 1e3)
+        out[str(pid)] = line
+    return out
+
+
+def _q97_of(out):
+    return (int(out["store_only"]), int(out["catalog_only"]), int(out["both"]))
+
+
+def _require_q67(what, got, want):
+    for k, v in want.items():
+        if not np.array_equal(np.asarray(got[k]), np.asarray(v)):
+            raise AssertionError(f"phase 22 {what}: field {k} differs from the order answer")
+
+
+def _lat(seconds):
+    ms = [s * 1e3 for s in seconds]
+    return {"requests": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def _transport(stats):
+    """The executors' shuffle transport counters, summed: bytes and frames
+    sent, fetches, CRC failures, truncations, every retry by its reason."""
+    tot = {}
+    for s in stats:
+        for k, v in s["transport"].items():
+            tot[k] = tot.get(k, 0) + v
+    return {"bytes_sent": tot.get("bytes_sent", 0), "frames_sent": tot.get("frames_sent", 0),
+            "bytes_fetched": tot.get("bytes_fetched", 0), "fetched": tot.get("fetched", 0),
+            "crc_failures": tot.get("retry_crc", 0),
+            "truncated": tot.get("retry_truncated", 0),
+            "refetches": tot.get("fetch_retries", 0),
+            "retries_by_reason": {k[len("retry_"):]: v for k, v in tot.items()
+                                  if k.startswith("retry_")},
+            "faults_injected": {k: tot.get(k, 0) for k in ("faults_corrupt", "faults_truncate")}}
+
+
+def supervisor_phase(q97, q67_want, q67_tables, direct, device="cuda"):
+    """Phase 22: the port's Supervisor over SUP_WORKERS executor processes
+    that share the one card (each its own engine, governor and budget share,
+    spawned after the parent empties its allocator's cache), driven by client
+    threads: q97 at SF10 as a real cross-process hash shuffle over
+    SUP_WORKERS map shards, plain then adaptive; q67 as a range shuffle; and
+    SUP_HASH_REQS hash32 requests.  Then a second cluster under
+    ``chaos_shuffle_config`` (corrupt, truncated and stalled frames, and
+    incarnation-0 executors SIGKILLed at a seeded budget crossing) runs q97
+    until one executor was killed and respawned.  Every answer is held to its
+    reference: q97 to the earlier phases' oracle and ``run_exchange_plan_local``
+    on the card, q67 to the order phase's answer (``q67_want``), hash32 to the
+    plain version's bits.  The clean cluster must spawn exactly SUP_WORKERS
+    executors and dispatch no lease twice; the chaos cluster must complete
+    every lease exactly once.  ``mm_hash_long`` launches made inside the
+    executors are added up from their stats files.  Prints the ``supervisor``
+    line and returns the phase's launch counts (the executors')."""
+    import tempfile
+
+    from spark_rapids_jni_tpu_torch.mem.governed import PEAK_OVER_RESERVATION
+    from spark_rapids_jni_tpu_torch.models.q97 import q97_plan
+    from spark_rapids_jni_tpu_torch.obs.faultinj import chaos_shuffle_config
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+    from spark_rapids_jni_tpu_torch.serve.shuffle import run_exchange_plan_local
+
+    t_phase = time.perf_counter()
+    store, catalog = q97["store"], q97["catalog"]
+    oracle = tuple(q97["oracle"])
+    tables = _q97_dicts(store, catalog)
+    # the single-process oracle on the card, timed: the direct call beside
+    # which the shuffle's wall stands
+    t0 = time.perf_counter()
+    local = _q97_of(run_exchange_plan_local(q97_plan(SUP_Q97_CAPACITY), tables, device=device))
+    local_s = time.perf_counter() - t0
+    if local != oracle:
+        raise AssertionError(f"phase 22 run_exchange_plan_local {local} != oracle {oracle}")
+    payloads = _serve_hash_payloads(SUP_HASH_REQS, SERVE_HASH_MAX_ROWS, seed=SUP_SEED)
+    plain = _hash_plain(payloads, device)
+    # the kernel at a map shard's shape (its q97 keys), against its plain version
+    shard = np.asarray(store[0][:len(store[0]) // SUP_WORKERS], np.int64) << 32
+    keys = torch.from_numpy(shard).to(device)
+    err = _require_equal("phase 22 mm_hash_long at a map shard's shape",
+                         hash_cuda.mm_hash_long_cuda(keys, 42),
+                         hash_cuda.mm_hash_long_torch(keys, 42))
+    del keys
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the parent's cache from the earlier phases
+        free, total = torch.cuda.mem_get_info()
+    else:
+        free, total = 1 << 34, 1 << 34
+    share = int(free / PEAK_OVER_RESERVATION / SUP_WORKERS)
+    line = {"workers": SUP_WORKERS, "engine_workers": SUP_ENGINE_WORKERS,
+            "budget_share_bytes": share, "card_free_at_spawn": free, "card_total": total,
+            "q97_rows": len(store[0]) + len(catalog[0]), "q67_rows": len(
+                q67_tables["store_sales"]["sid"]),
+            "hash32_requests": SUP_HASH_REQS, "seed": SUP_SEED, "kernel_check_err": err}
+    with tempfile.TemporaryDirectory() as clean_dir, \
+            tempfile.TemporaryDirectory() as chaos_dir, _AppMemory(device == "cuda") as mem:
+        # 1. the clean cluster
+        t0 = time.perf_counter()
+        sup = _supervisor(clean_dir, share, device)
+        watch = _HelloWatch(t0).watch(sup)
+        try:
+            watch.wait_all()
+            sess = sup.open_session("phase22", priority=1)
+            q97_out, q97_s, rid = _one(sup, sess, "q97_shuffle", tables)
+            spans = {"q97_shuffle": _breakdown(sup, rid)}
+            ad_out, ad_s, rid = _one(sup, sess, "q97_shuffle_adaptive", tables)
+            spans["q97_shuffle_adaptive"] = _breakdown(sup, rid)
+            q67_out, q67_s, rid = _one(sup, sess, "q67_shuffle", q67_tables)
+            spans["q67_shuffle"] = _breakdown(sup, rid)
+            rng = np.random.default_rng(SUP_SEED)
+            order = rng.permutation(len(payloads))
+            t_hash = time.perf_counter()
+            hres = _sup_clients(sup, sess, [("hash32", payloads[i]) for i in order])
+            hash_s = time.perf_counter() - t_hash
+            clean = {"workers_spawned": sup.metrics.get("workers_spawned"),
+                     "workers_dead": sup.metrics.get("workers_dead"),
+                     "leases": sup.lease_stats(),
+                     "shuffles_started": sup.metrics.get("shuffles_started")}
+        finally:
+            hello = watch.seconds()
+            sup.shutdown(drain=False, timeout=60)
+        clean_s = time.perf_counter() - t0
+        for what, got in (("q97 over the shuffle", _q97_of(q97_out)),
+                          ("adaptive q97 over the shuffle", _q97_of(ad_out))):
+            if got != oracle:
+                raise AssertionError(f"phase 22 {what} {got} != oracle {oracle}")
+        _require_q67("q67 over the range shuffle", q67_out, q67_want)
+        answers = [None] * len(payloads)
+        for i, (ans, _s) in zip(order, hres):
+            answers[i] = ans
+        _require_same_arrays("phase 22 hash32 through the supervisor against the plain version",
+                             answers, plain)
+        lc = clean["leases"]
+        if (clean["workers_spawned"] != SUP_WORKERS or clean["workers_dead"]
+                or lc["redispatched"] or lc["max_dispatches"] != 1
+                or lc["completed"] != lc["leases"] or lc["outstanding"]):
+            raise AssertionError(f"phase 22 clean cluster: {clean}")
+        clean_stats = _worker_stats(clean_dir)
+        # 2. the chaos cluster: transport weather everywhere, and executor
+        # 0's first incarnation armed to die at a budget crossing.  One kill
+        # at a time: a piece re-dispatched onto an executor whose engine
+        # threads all wait on the dead producer's partitions would queue
+        # behind them until the fetch timeout
+        t0 = time.perf_counter()
+
+        def chaos(wid, inc):
+            return chaos_shuffle_config(SUP_CHAOS_SEED * 1000 + wid * 17 + inc,
+                                        kill=(wid == 0 and inc == 0), kill_pct=SUP_KILL_PCT)
+
+        sup = _supervisor(chaos_dir, share, device, chaos=chaos)
+        watch = _HelloWatch(t0).watch(sup)
+        try:
+            watch.wait_all()
+            sess = sup.open_session("phase22-chaos", priority=1)
+            chaos_runs = []
+            while len(chaos_runs) < SUP_CHAOS_ROUNDS and not sup.metrics.get("workers_dead"):
+                out, s, _rid = _one(sup, sess, "q97_shuffle", tables)
+                chaos_runs.append(s)
+                if _q97_of(out) != oracle:
+                    raise AssertionError(f"phase 22 chaos q97 {_q97_of(out)} != {oracle}")
+            watch.wait_all()  # every killed executor respawned
+            chaos_line = {"runs_s": chaos_runs,
+                          "workers_spawned": sup.metrics.get("workers_spawned"),
+                          "workers_dead": sup.metrics.get("workers_dead"),
+                          "leases_redispatched": sup.metrics.get("leases_redispatched"),
+                          "leases": sup.lease_stats()}
+        finally:
+            chaos_hello = watch.seconds()
+            sup.shutdown(drain=False, timeout=60)
+        chaos_s = time.perf_counter() - t0
+        lx = chaos_line["leases"]
+        if (not chaos_line["workers_dead"]
+                or chaos_line["workers_spawned"] < SUP_WORKERS + chaos_line["workers_dead"]
+                or lx["completed"] != lx["leases"] or lx["outstanding"]):
+            raise AssertionError(f"phase 22 chaos cluster: {chaos_line}")
+        chaos_stats = _worker_stats(chaos_dir)
+    stats = clean_stats + chaos_stats
+    bad = [s for s in stats if torch.device(s["device"]).type != torch.device(device).type]
+    if bad:
+        raise AssertionError(f"phase 22: executors on the wrong device: {bad}")
+    launches = {k: sum(s["launches"][k] for s in stats) for k in hash_cuda.launches}
+    clean_launches = sum(s["launches"]["mm_hash_long"] for s in clean_stats)
+    if device == "cuda":
+        # every executor launched its warm-up at least (none fell back); the
+        # clean ones also one per map piece of the two q97 shuffles and at
+        # least one for the hash32 requests (a batch of several rides one)
+        idle = [s["pid"] for s in stats if s["launches"]["mm_hash_long"] < 1]
+        want_min = SUP_WORKERS + 2 * SUP_WORKERS + 1
+        if idle or clean_launches < want_min:
+            raise AssertionError(f"phase 22: executors {idle} launched nothing; "
+                                 f"{clean_launches} mm_hash_long launches in the clean "
+                                 f"cluster, fewer than {want_min}")
+    if mem.peak_sum * (1 << 20) > total:
+        raise AssertionError(f"phase 22: the card's processes held {mem.peak_sum} MiB, "
+                             f"more than its {total} B")
+    hash_lat = [s for _a, s in hres]
+    print(json.dumps({"supervisor_launches": launches}))
+    print(json.dumps({"supervisor": {
+        **line,
+        "spawn_to_hello_s": hello, "chaos_spawn_to_hello_s": chaos_hello,
+        "handlers": {"hash32": _lat(hash_lat),
+                     "q97_shuffle": {"s": q97_s}, "q97_shuffle_adaptive": {"s": ad_s},
+                     "q67_shuffle": {"s": q67_s}},
+        "hash32_stage_s": hash_s, "spans_ms": spans,
+        "q97_shuffle_s": q97_s, "q97_local_exchange_s": local_s, **direct,
+        "transport": _transport(clean_stats), "chaos_transport": _transport(chaos_stats),
+        "clean": clean, "chaos": chaos_line,
+        "worker_peak_bytes": {str(s["pid"]): {"allocated": s.get("max_allocated"),
+                                              "reserved": s.get("max_reserved")}
+                              for s in stats},
+        "nvidia_smi_peak_mib": {"sum": mem.peak_sum, "per_pid": mem.per_pid,
+                                "samples": mem.samples},
+        "worker_launches": {str(s["pid"]): s["launches"]["mm_hash_long"] for s in stats},
+        "clean_mm_hash_long": clean_launches,
+        "stages_s": {"clean": clean_s, "chaos": chaos_s},
+        "seconds": time.perf_counter() - t_phase}}))
+    return launches
+
+
+def _q67_batch():
+    from spark_rapids_jni_tpu_torch.models import make_q67_tables
+
+    return make_q67_tables(ORDER_ROWS, ORDER_ITEMS, ORDER_CATS, seed=ORDER_SEED)
+
+
+def supervisor_alone(device="cuda"):
+    """Phase 22 by itself: builds the kernels, makes the SF10 q97 tables and
+    their oracle and the order phase's q67 batch and answer, then runs it.
+    ``python3 -c "import chip_smoke as c; c.supervisor_alone()"``."""
+    from spark_rapids_jni_tpu_torch.models import q67_plan
+    from spark_rapids_jni_tpu_torch.models.tpcds import generate_q97_tables
+    from spark_rapids_jni_tpu_torch.serve.shuffle import run_range_plan_local
+
+    if device == "cuda":
+        build()
+    store, catalog = generate_q97_tables(sf=Q97_SF, seed=42)
+    q97 = {"store": store, "catalog": catalog, "oracle": q97_oracle(store, catalog)}
+    q67_tables = _q67_batch()
+    q67_want = run_range_plan_local(q67_plan(ORDER_K, ORDER_ITEMS), q67_tables, device=device)
+    return supervisor_phase(q97, q67_want, q67_tables, {}, device=device)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -5536,10 +6100,12 @@ def main() -> int:
         lap("governed")
     path_counts = [counts, col_counts, dist_counts, plan_counts, gov_counts]
     for name, phase in (("bloom", bloom), ("decimal", decimal),
-                        ("rows", lambda: jcudf_rows(rates)), ("casts", lambda: casts(rates)),
-                        ("order", lambda: order(gp))):
+                        ("rows", lambda: jcudf_rows(rates)), ("casts", lambda: casts(rates))):
         path_counts.append(phase())
         lap(name)
+    order_counts, q67 = order(gp)
+    path_counts.append(order_counts)
+    lap("order")
     json_counts, json_head = json_phase(rates)
     path_counts.append(json_counts)
     lap("json")
@@ -5550,10 +6116,13 @@ def main() -> int:
     with one_rank_mesh("cuda") as mesh:
         path_counts.append(observability(mesh, q97, json_head))
         lap("observability")
-        path_counts.append(serve_phase(mesh, q97, gp, json_head))
+        serve_counts, direct = serve_phase(mesh, q97, gp, json_head)
+        path_counts.append(serve_counts)
     lap("serve")
+    path_counts.append(supervisor_phase(q97, q67["want"], q67["tables"], direct))
+    lap("supervisor")
     print(json.dumps({"phase_seconds": seconds, "total": sum(seconds.values())}))
-    for row in rows:  # the main path is now all fifteen paths: their launches add up
+    for row in rows:  # the main path is now all sixteen paths: their launches add up
         row["launches"] = sum(c[row["name"]] for c in path_counts)
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))

@@ -19,7 +19,9 @@ adds that base, so the events read as wall-clock microseconds.  Device
 events sit under shifted pids so tracks stay distinguishable; alignment uses
 the wall/monotonic clock anchor the profiler banks at start() when the
 device clock reads as wall time, else falls back to aligning both streams at
-their first event.
+their first event; where a window holds the profiler's warm-up and closing
+marks (on a card), its events are also rescaled by the clock rate error the
+marks show.
 
 Usage::
 
@@ -40,7 +42,13 @@ import sys
 from typing import Iterator, List, Optional
 
 from spark_rapids_jni_tpu_torch.obs.flight import EVENT_KINDS
-from spark_rapids_jni_tpu_torch.obs.profiler import CLOCK_ANCHOR, MAGIC, VERSION
+from spark_rapids_jni_tpu_torch.obs.profiler import (
+    CLOCK_ANCHOR,
+    CLOSING_RANGE,
+    MAGIC,
+    VERSION,
+    WARMUP_RANGE,
+)
 
 _CATEGORY_NAMES = ["op", "transfer", "collective", "alloc", "marker",
                    "spill", "compile", "serve"]
@@ -230,6 +238,41 @@ def load_device_trace(trace_dir: str) -> List[dict]:
     return out
 
 
+# a fitted clock rate error above this is taken for a mismatched mark, and
+# the window keeps its anchor's placement alone
+_MAX_CLOCK_RATE = 0.05
+
+
+def _clock_rate(host: List[dict], kernels: List[dict], shift_us: float):
+    """(the host time it is fitted from, the rate error) of one window's
+    profiler clock against the host's, or None: its first and last kernel
+    launches are the warm-up's and the closing mark's (Profiler.start and
+    stop), each synchronized on inside a host range, so the last kernel to end
+    within the warm-up range and the window's last kernel should end as far
+    before their ranges' ends; what the second is off beyond the first,
+    over the host time between them, is the rate error."""
+    if not kernels:
+        return None
+    first = kernels[0]["ts"] + shift_us
+    last_end = max(k["ts"] + k["dur"] for k in kernels) + shift_us
+
+    def nearest(name, t):
+        cands = [e for e in host if e.get("pid") == 0 and e.get("ph") == "X"
+                 and e.get("name") == name]
+        return min(cands, key=lambda e: abs(e["ts"] - t), default=None)
+
+    w, c = nearest(WARMUP_RANGE, first), nearest(CLOSING_RANGE, last_end)
+    if w is None or c is None:
+        return None
+    w_end, c_end = w["ts"] + w["dur"], c["ts"] + c["dur"]
+    in_w = [k["ts"] + k["dur"] + shift_us for k in kernels
+            if w["ts"] <= k["ts"] + shift_us and k["ts"] + k["dur"] + shift_us <= w_end]
+    if not in_w or c_end <= w_end:
+        return None
+    rate = ((last_end - c_end) - (max(in_w) - w_end)) / (c_end - w_end)
+    return (w_end, rate) if abs(rate) <= _MAX_CLOCK_RATE else None
+
+
 def merge_device_events(chrome: dict, dev_events: List[dict],
                         wall_minus_mono_ns: Optional[int]) -> dict:
     """Interleave device trace events into a chrome trace built from SRTP.
@@ -238,7 +281,10 @@ def merge_device_events(chrome: dict, dev_events: List[dict],
     ('M') events ride along so track names survive.  If the device clock
     reads as wall time and the capture carries the clock anchor, events
     are placed exactly on the host monotonic timeline; otherwise both
-    streams are aligned at their first event.
+    streams are aligned at their first event.  Where the window's export
+    holds the kernels of the profiler's warm-up and closing marks (a card),
+    its events are also rescaled by the rate error those marks show
+    (:func:`_clock_rate`), recorded in the trace's ``deviceClockRates``.
     """
     host = chrome["traceEvents"]
     xs = [e for e in dev_events if e.get("ph") == "X" and "ts" in e]
@@ -255,6 +301,10 @@ def merge_device_events(chrome: dict, dev_events: List[dict],
         if abs((dev_min_us + exact) - host_min_us) < 3600e6:
             shift_us = exact
 
+    kernels = sorted((e for e in xs if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    fit = _clock_rate(host, kernels, shift_us)
+    if fit is not None:
+        chrome.setdefault("deviceClockRates", []).append(fit[1])
     for e in dev_events:
         ph = e.get("ph")
         if ph not in ("X", "M"):
@@ -263,6 +313,10 @@ def merge_device_events(chrome: dict, dev_events: List[dict],
         m["pid"] = _DEVICE_PID_BASE + int(e.get("pid", 0))
         if ph == "X":
             m["ts"] = e["ts"] + shift_us
+            if fit is not None:  # stamped t0 + (t - t0)(1 + rate): invert it
+                t0, rate = fit
+                m["ts"] = t0 + (m["ts"] - t0) / (1 + rate)
+                m["dur"] = e.get("dur", 0) / (1 + rate)
             m.setdefault("cat", "device")
         host.append(m)
     return chrome

@@ -49,7 +49,7 @@ from typing import Optional
 
 from spark_rapids_jni_tpu_torch.obs import seam as _seam
 
-__all__ = ["Profiler", "MAGIC", "VERSION", "CLOCK_ANCHOR", "WARMUP_RANGE"]
+__all__ = ["Profiler", "MAGIC", "VERSION", "CLOCK_ANCHOR", "WARMUP_RANGE", "CLOSING_RANGE"]
 
 MAGIC = b"SRTP"
 VERSION = 2
@@ -95,6 +95,12 @@ _trace_seq = itertools.count()
 # 2.11.0+cu128), so throwaway launches take those places
 WARMUP_LAUNCHES = 256
 WARMUP_RANGE = "profiler:warmup"
+# one device launch and a synchronize that close each device trace window:
+# with the warm-up's last launch they give the converter a launch at each end
+# of the window on both clocks, from which it fits the profiler clock's rate
+# to the host's (the two drift apart by up to a few thousand ppm, at a rate
+# that differs from process to process)
+CLOSING_RANGE = "profiler:closing"
 
 
 def _intern(name: str) -> int:
@@ -211,6 +217,12 @@ class Profiler:
     def stop() -> None:
         prof, _st.torch_prof = _st.torch_prof, None
         if prof is not None:
+            import torch
+
+            if torch.cuda.is_available():
+                with _range("marker", CLOSING_RANGE):
+                    torch.ones(1, device="cuda").add_(1)
+                    torch.cuda.synchronize()
             prof.stop()
             # the chrome export is what obs/convert.py merges into the
             # durable trace (the device kernel timeline)

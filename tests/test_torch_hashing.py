@@ -388,9 +388,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spark_rapids_jni_tpu_torch.plans.rcache\n"
         "from spark_rapids_jni_tpu_torch.plans.compiler import cached_ragged_compile\n"
         "from spark_rapids_jni_tpu_torch.serve import ServingEngine, RaggedSpec, Knob\n"
+        "import spark_rapids_jni_tpu_torch.serve.rpc, spark_rapids_jni_tpu_torch.serve.slo\n"
+        "import spark_rapids_jni_tpu_torch.serve.telemetry\n"
+        "import spark_rapids_jni_tpu_torch.serve.supervisor\n"
+        "from spark_rapids_jni_tpu_torch.serve.shuffle import ShuffleService, run_shuffle_piece\n"
+        "from spark_rapids_jni_tpu_torch.serve import Supervisor, ShuffleSpec, TelemetryServer\n"
         "sys.path.insert(0, 'tests')\n"
         "import uri_oracle  # the parse_url oracle the card's smoke run imports\n"
         "import torch_mesh_ranks  # what spawned gloo ranks import\n"
+        "import torch_cluster_worker  # what spawned executor workers import\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.split('.')[0] == 'spark_rapids_jni_tpu')\n"

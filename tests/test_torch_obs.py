@@ -192,6 +192,41 @@ def test_torch_profiler_cpu_export_merges(tmp_path):
         assert inside and (op is None or any(e["name"] == op for e in inside)), name
 
 
+def test_merge_fits_the_profiler_clock_rate_from_its_marks():
+    """A window whose export holds the warm-up's and the closing mark's
+    kernels (as on a card) is rescaled by the rate error they show: device
+    events stamped by a clock running 3,000 ppm fast land back on the host's
+    timeline; without the closing mark only the anchor places them."""
+    rate = 3000e-6
+    w_end, c_end = 1_000.0, 3_001_000.0  # host us: warm-up and closing range ends
+
+    def stamped(t):  # the profiler clock, fast by `rate` after the warm-up
+        return t + rate * (t - w_end)
+
+    def kernel(name, start, end):
+        return {"ph": "X", "cat": "kernel", "name": name, "pid": 0, "tid": 7,
+                "ts": stamped(start), "dur": stamped(end) - stamped(start)}
+
+    dev = [kernel("warm", 500.0, 980.0), kernel("work", 2_000_000.0, 2_900_000.0),
+           kernel("mark", 3_000_900.0, 3_000_980.0)]
+    ranges = [("profiler:warmup", 0.0, w_end), ("call:work", 1_500.0, 2_950_000.0),
+              ("profiler:closing", 3_000_800.0, c_end)]
+    host = [{"name": n, "ph": "X", "ts": a, "dur": b - a, "pid": 0, "tid": 1}
+            for n, a, b in ranges]
+    merged = convert.merge_device_events({"traceEvents": [dict(h) for h in host]}, dev, 0)
+    assert merged["deviceClockRates"] == [pytest.approx(rate)]
+    got = {e["name"]: e for e in merged["traceEvents"] if e.get("pid", 0) >= 1000}
+    assert got["work"]["ts"] == pytest.approx(2_000_000.0, abs=1.0)
+    assert got["work"]["ts"] + got["work"]["dur"] == pytest.approx(2_900_000.0, abs=1.0)
+    assert got["mark"]["ts"] + got["mark"]["dur"] == pytest.approx(3_000_980.0, abs=1.0)
+    # no closing mark in the host trace: the anchor alone places the events
+    plain = convert.merge_device_events(
+        {"traceEvents": [dict(h) for h in host if h["name"] != "profiler:closing"]}, dev, 0)
+    assert "deviceClockRates" not in plain
+    work = next(e for e in plain["traceEvents"] if e.get("name") == "work" and e["pid"] >= 1000)
+    assert work["ts"] == pytest.approx(stamped(2_000_000.0))
+
+
 def _decisions(pkg, config, crossings, monkeypatch):
     """Install ``config`` into ``pkg``'s injector and cross each (category,
     name); returns per crossing "ok", the exception's type name, or the
