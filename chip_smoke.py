@@ -170,7 +170,7 @@ port package beside it.  Otherwise it:
    ``$.store.fruit[0]``, ``$.*`` and one no row matches), one single-path
    ``get_json_object`` and ``from_json`` over the column with its malformed
    rows nulled, all on the device arm; holds every output bit for bit
-   against the host arm on the card over the first 2**15 rows, the port's
+   against the host arm on the card over the first 2**14 rows, the port's
    CPU run of the first 2**13 rows and ``tests/json_oracle.py`` over the
    first 2**12, checks that ``from_json`` of the whole column raises at the
    expected row, and prints a ``json`` line (per call: time, peak memory,
@@ -252,14 +252,17 @@ port package beside it.  Otherwise it:
    cross-process hash shuffle over 4 map shards, plain and then with the
    adaptive exchange; q67 at SF10 (the order phase's batch) as a range
    shuffle; 256 ``hash32`` requests (int64 rows log-uniform over 1-2**20,
-   numpy seed 83) from 8 client threads; then a second cluster under
+   numpy seed 83) from 8 client threads; one ``hash32_wide`` request whose
+   answer (the murmur3 of 2**26 int64 keys made on the card) is 268,435,456
+   bytes, under the default heartbeat budget; then a second cluster under
    ``chaos_shuffle_config`` (corrupt, truncated and stalled frames, and
    executor 0's first incarnation SIGKILLed at a seeded budget crossing)
    running q97 until that executor was killed and respawned.  Holds q97 to
    the earlier phases' oracle and ``run_exchange_plan_local`` on the card,
-   q67 to the order phase's answer, every ``hash32`` answer to the plain
-   version's bits and ``mm_hash_long`` to its plain version at a map
-   shard's shape; the clean cluster must spawn exactly 4 executors and
+   q67 to the order phase's answer, every ``hash32`` answer and the wide
+   one to the plain version's bits and ``mm_hash_long`` to its plain
+   version at a map shard's shape; the clean cluster must spawn exactly 4
+   executors, declare none dead and
    dispatch no lease twice, the chaos cluster complete every lease once,
    every executor run on the card and launch, and the card's processes stay
    within its memory.  The executors write their ``mm_hash_long`` launches to
@@ -267,8 +270,24 @@ port package beside it.  Otherwise it:
    and the ``supervisor`` line (spawn-to-HELLO seconds, per handler
    latencies, each shuffle's span breakdown, the data plane's bytes, frames,
    CRC failures and retries, respawns, re-dispatches, peaks, launches);
+23. launches ``torch.cuda.device_count()`` rank processes with a
+   launcher's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+   ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR=127.0.0.1``, a free ``MASTER_PORT``,
+   NCCL on loopback): one rank on one card, one per card on more.  Each
+   joins the group through ``parallel.multihost.initialize``, runs the NDS
+   harness's ``main`` with ``--sf 10 --verify`` in memory and then streamed
+   as phase 18 does, over ``make_pod_mesh(mp=1)``, then
+   ``run_q97_monte_carlo`` over the ranks (6 tasks, each on process groups
+   of its own).  Every rank's lines must be verified and equal to the
+   others' (timings aside), q97's counts in memory the distributed phase's
+   numpy oracle of the same SF10 tables and streamed the JAX package's
+   config 5 answer, q5 40 rows, the monte-carlo ok with 6 data-axis groups;
+   a rank that fails, or runs past 300 s, fails the run.  The ranks write their ``mm_hash_long``
+   launches to files the parent adds up.  Prints ``multihost_launches`` and
+   the ``multihost`` line (world, spawn-to-group seconds, each query's wall
+   and Mrows/s per rank, the monte-carlo's stats);
    then the phases' seconds, the card's name and power limit, the
-   ``kernels`` line (all seven kernels, their launches over the sixteen
+   ``kernels`` line (all seven kernels, their launches over the seventeen
    paths) and, last, the ``ok`` line.
 
 The governed phase also holds every call's device peak over its reservation
@@ -1463,7 +1482,7 @@ def distributed(mesh, cfg):
 
 Q5_SF, Q5_SEED = 838.86, 5  # store_sales 33,554,400 rows (pads to 2**25); six streams 1.80 GB
 Q3_SF, Q3_SEED = 559.24, 3  # store_sales 67,108,800 rows (2**26); 83,886 groups
-PLAN_REPS = 3  # host-to-host calls timed per part, after the path's first call
+PLAN_REPS = 2  # host-to-host calls timed per part, after the path's first call
 # part -> the kernel launches it must make, and no others
 PLAN_LAUNCHES = {
     "q5": {},
@@ -3774,7 +3793,7 @@ N_JSON = 1 << 22  # event rows: lengths 33-1011 B, mean 212.5 B, 0.89 GB of char
 JSON_SEED = 71
 JSON_POOL = 1 << 14  # distinct documents the rows are drawn from (each row gets its own id)
 JSON_NULL, JSON_BAD = 0.10, 0.02  # null rows; malformed (truncated) documents
-JSON_HOST_ROWS = 1 << 15  # rows held device arm against host arm on the card
+JSON_HOST_ROWS = 1 << 14  # rows held device arm against host arm on the card
 JSON_CPU_ROWS = 1 << 13  # rows held against the port's CPU run
 JSON_ORACLE_ROWS = 1 << 12  # rows held against tests/json_oracle.py
 JSON_PROFILE_ROWS = 1 << 14  # rows of the calls whose kernels the profiler counts
@@ -5515,6 +5534,12 @@ SUP_KILL_PCT = 50.0  # per budget crossing of executor 0's first incarnation (it
 SUP_CHAOS_ROUNDS = 3  # chaos q97 runs at most, until the armed executor has been killed
 SUP_LEASE_HANG_S = 300.0  # a shard piece at SF10 is seconds of work, far from a hang
 SUP_STATS_S = 0.25  # period of each executor's stats file
+SUP_WIDE_ROWS = 1 << 26  # rows of the hash32_wide request: a 268,435,456-byte result
+
+
+def _wide_keys(n, seed, device):
+    """The hash32_wide request's int64 keys, made on ``device``."""
+    return torch.arange(n, dtype=torch.int64, device=device) * 0x5DEECE66D + seed
 
 
 def _q97_dicts(store, catalog):
@@ -5572,6 +5597,17 @@ def supervised_worker(engine, stats_dir, device="cuda"):
         name="q67_shuffle",
         fn=shuffle.make_range_shuffle_handler(q67_plan(ORDER_K, ORDER_ITEMS)),
         nbytes_of=lambda p: 0))
+
+    def wide(payload, ctx):
+        from spark_rapids_jni_tpu_torch.columnar.column import Column
+        from spark_rapids_jni_tpu_torch.columnar.dtypes import INT64
+        from spark_rapids_jni_tpu_torch.ops import murmur_hash32
+
+        n, seed = payload
+        keys = Column(_wide_keys(n, seed, ctx.device), None, INT64)
+        return murmur_hash32([keys], seed=42).data.cpu().numpy()
+
+    engine.register(QueryHandler(name="hash32_wide", fn=wide, nbytes_of=lambda p: 16 * p[0]))
     path = os.path.join(stats_dir, f"worker_{os.getpid()}.json")
     write_lock = threading.Lock()  # the stats thread and the exit hook
 
@@ -5720,6 +5756,7 @@ def _supervisor(stats_dir, share, device, chaos=None):
     sup.register(ShuffleSpec("q67_shuffle", split_n=make_range_split(q67, device=device),
                              combine=combine_ordered_outputs(q67), fanout=SUP_WORKERS))
     sup.register(HandlerSpec("hash32", nbytes_of=lambda p: 16 * len(p)))
+    sup.register(HandlerSpec("hash32_wide", nbytes_of=lambda p: 16 * p[0]))
     return sup
 
 
@@ -5910,6 +5947,9 @@ def supervisor_phase(q97, q67_want, q67_tables, direct, device="cuda"):
             t_hash = time.perf_counter()
             hres = _sup_clients(sup, sess, [("hash32", payloads[i]) for i in order])
             hash_s = time.perf_counter() - t_hash
+            # one result of 256 MB under the default heartbeat budget: its
+            # chunks leave room for the beats, so no healthy worker recycles
+            wide_out, wide_s, _rid = _one(sup, sess, "hash32_wide", (SUP_WIDE_ROWS, SUP_SEED))
             clean = {"workers_spawned": sup.metrics.get("workers_spawned"),
                      "workers_dead": sup.metrics.get("workers_dead"),
                      "leases": sup.lease_stats(),
@@ -5928,6 +5968,14 @@ def supervisor_phase(q97, q67_want, q67_tables, direct, device="cuda"):
             answers[i] = ans
         _require_same_arrays("phase 22 hash32 through the supervisor against the plain version",
                              answers, plain)
+        wide_plain = hash_cuda.mm_hash_long_torch(
+            _wide_keys(SUP_WIDE_ROWS, SUP_SEED, device), 42).cpu().numpy()
+        _require_same_arrays("phase 22 hash32_wide (a 256 MB result) against the plain version",
+                             [wide_out], [wide_plain])
+        if wide_out.nbytes < 256_000_000:
+            raise AssertionError(f"phase 22 hash32_wide returned {wide_out.nbytes} B")
+        wide = {"rows": SUP_WIDE_ROWS, "bytes": int(wide_out.nbytes), "s": wide_s}
+        del wide_out, wide_plain
         lc = clean["leases"]
         if (clean["workers_spawned"] != SUP_WORKERS or clean["workers_dead"]
                 or lc["redispatched"] or lc["max_dispatches"] != 1
@@ -5999,7 +6047,7 @@ def supervisor_phase(q97, q67_want, q67_tables, direct, device="cuda"):
         "handlers": {"hash32": _lat(hash_lat),
                      "q97_shuffle": {"s": q97_s}, "q97_shuffle_adaptive": {"s": ad_s},
                      "q67_shuffle": {"s": q67_s}},
-        "hash32_stage_s": hash_s, "spans_ms": spans,
+        "hash32_stage_s": hash_s, "hash32_wide": wide, "spans_ms": spans,
         "q97_shuffle_s": q97_s, "q97_local_exchange_s": local_s, **direct,
         "transport": _transport(clean_stats), "chaos_transport": _transport(chaos_stats),
         "clean": clean, "chaos": chaos_line,
@@ -6036,6 +6084,224 @@ def supervisor_alone(device="cuda"):
     q67_tables = _q67_batch()
     q67_want = run_range_plan_local(q67_plan(ORDER_K, ORDER_ITEMS), q67_tables, device=device)
     return supervisor_phase(q97, q67_want, q67_tables, {}, device=device)
+
+
+# ---- phase 23: the launched ranks (multi-host) -------------------------------
+
+MH_ARGS = ["--sf", "10", "--verify"]  # the harness in memory at SF10 (seed 42); then C5_ARGS
+MH_MONTE_CARLO = dict(n_tasks=6, budget_frac=0.6, seed=0)
+MH_TIMEOUT_S = 300.0  # a rank still running after this fails the phase
+_MH_TIMING_KEYS = ("wall_s", "Mrows_per_s", "total_wall_s")
+
+
+def multihost_rank(out_dir, device=None):
+    """One rank of phase 23, started with a launcher's environment: joins the
+    group through ``initialize`` (NCCL on LOCAL_RANK's card), runs the
+    harness's ``main`` with MH_ARGS and then streamed with C5_ARGS (its mesh
+    ``make_pod_mesh(mp=1)`` over the ranks), then ``run_q97_monte_carlo``
+    over the ranks, and writes its lines, timings and ``mm_hash_long``
+    launches to ``out_dir/rank<RANK>.json``.  ``device="cpu"`` runs it on
+    gloo (a rehearsal)."""
+    import contextlib
+    import io as _io
+    import os
+
+    import torch.distributed as dist
+
+    from spark_rapids_jni_tpu_torch.mem.montecarlo import run_q97_monte_carlo
+    from spark_rapids_jni_tpu_torch.models import nds_harness
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+    from spark_rapids_jni_tpu_torch.parallel import initialize_multihost, is_multihost
+    from spark_rapids_jni_tpu_torch.parallel.multihost import process_summary
+
+    rank = int(os.environ["RANK"])
+    initialize_multihost(device=device)
+    group_s = time.time() - float(os.environ["MH_SPAWN_T"])
+    hash_cuda.reset_launches()
+    lines, harness_s, harness_launches, rc = {}, {}, {}, 0
+    for mode, args in (("memory", MH_ARGS), ("streamed", C5_ARGS)):
+        printed = _io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc |= nds_harness.main(args, device=device)
+        harness_s[mode] = time.perf_counter() - t0
+        lines[mode] = json.loads(printed.getvalue().strip().splitlines()[-1])
+        harness_launches[mode] = hash_cuda.launches["mm_hash_long"] - sum(
+            harness_launches.values())
+    t0 = time.perf_counter()
+    stats = run_q97_monte_carlo(**MH_MONTE_CARLO, device=device)
+    card = str(torch.cuda.current_device()) if device is None else str(rank)
+    out = {"rank": rank, "pid": os.getpid(), "device": card,
+           "summary": process_summary(), "multihost": is_multihost(),
+           "spawn_to_group_s": group_s, "rc": rc, "harness_s": harness_s,
+           "lines": lines, "harness_launches": harness_launches,
+           "monte_carlo": {**dataclasses.asdict(stats), "ok": stats.ok,
+                           "s": time.perf_counter() - t0},
+           "launches": dict(hash_cuda.launches)}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _launch_ranks(world, out_dir, device):
+    """``world`` rank processes with a launcher's environment (one per card,
+    NCCL on loopback), each running :func:`multihost_rank`; waits for all of
+    them, and kills the rest and raises when one fails or the bound passes."""
+    import os
+
+    port, procs = _free_port(), []
+    here = os.path.dirname(os.path.abspath(__file__))
+    for rank in range(world):
+        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world),
+               "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world),
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "NCCL_SOCKET_IFNAME": "lo", "MH_SPAWN_T": repr(time.time())}
+        log = open(os.path.join(out_dir, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.multihost_rank({out_dir!r}, {device!r})"],
+            cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.perf_counter() + MH_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            bad = [i for i, (p, _) in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad or time.perf_counter() > deadline:
+                why = f"ranks {bad} exited non-zero" if bad else f"ranks still running " \
+                    f"after {MH_TIMEOUT_S} s"
+                raise AssertionError(f"phase 23: {why}")
+            time.sleep(0.2)
+        bad = [i for i, (p, _) in enumerate(procs) if p.returncode != 0]
+        if bad:
+            raise AssertionError(f"phase 23: ranks {bad} exited non-zero")
+    except AssertionError:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+        for i, (p, log) in enumerate(procs):
+            p.wait(timeout=30)
+            log.close()
+            with open(os.path.join(out_dir, f"rank{i}.log")) as f:
+                print(f"phase 23 rank {i} (exit {p.returncode}):", f.read()[-3000:],
+                      file=sys.stderr)
+        raise
+    for _, log in procs:
+        log.close()
+    out = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _without_timing(line):
+    if isinstance(line, dict):
+        return {k: _without_timing(v) for k, v in line.items() if k not in _MH_TIMING_KEYS}
+    return line
+
+
+def multihost_phase(q97, device=None):
+    """Phase 23: ``torch.cuda.device_count()`` rank processes launched as
+    ``torchrun`` launches them, each joining the group through
+    ``initialize``, running the NDS harness at SF10 in memory and then
+    streamed (config 5's C5_ARGS) over ``make_pod_mesh(mp=1)``, and then
+    ``run_q97_monte_carlo`` over the ranks.  Every rank's lines must be
+    verified and equal to the others' (timings aside); q97's counts in
+    memory the numpy oracle of the distributed phase's SF10 tables
+    (``q97["oracle"]``: the harness generates the same tables) and streamed
+    C5_Q97_COUNTS (the chunk generator's); q5 40 rows; the monte-carlo ok on
+    every rank with one data-axis group per task; every rank on its own
+    card.  Prints the ``multihost`` line and returns the ranks' launch
+    counts, added up.  ``device="cpu"`` rehearses it on two gloo ranks."""
+    import tempfile
+
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    world = torch.cuda.device_count() if device is None else 2
+    if device is None:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the parent's cache: the ranks need the card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        ranks = _launch_ranks(world, out_dir, device)
+    seconds = time.perf_counter() - t0
+    oracle = [int(x) for x in q97["oracle"]]
+    want = {"memory": oracle, "streamed": C5_Q97_COUNTS}
+    for r in ranks:
+        mc = r["monte_carlo"]
+        for mode, line in r["lines"].items():
+            qs = line["queries"]
+            if r["rc"] != 0 or any(q["verified"] is not True for q in qs.values()):
+                raise AssertionError(f"phase 23 rank {r['rank']} {mode}: not verified: {line}")
+            if line["ndev"] != world or qs["q97"]["counts"] != want[mode]:
+                raise AssertionError(f"phase 23 rank {r['rank']} {mode}: ndev {line['ndev']}, "
+                                     f"q97 {qs['q97']['counts']} against {want[mode]}")
+            if qs["q5"]["result_rows"] != C5_Q5_ROWS or qs["q97"]["fact_rows"] != C5_ROWS_IN:
+                raise AssertionError(f"phase 23 rank {r['rank']} {mode}: q5 "
+                                     f"{qs['q5']['result_rows']} rows, q97 read "
+                                     f"{qs['q97']['fact_rows']}")
+            if device is None and r["harness_launches"][mode] < 1:
+                raise AssertionError(f"phase 23 rank {r['rank']} {mode} launched no kernel")
+        if not (mc["ok"] and mc["tasks_completed"] == MH_MONTE_CARLO["n_tasks"]
+                and mc["data_groups"] == MH_MONTE_CARLO["n_tasks"]):
+            raise AssertionError(f"phase 23 rank {r['rank']}: monte-carlo {mc}")
+        if r["summary"]["process_count"] != world or r["multihost"] != (world > 1):
+            raise AssertionError(f"phase 23 rank {r['rank']}: {r['summary']}")
+        if any(v for k, v in r["launches"].items() if k != "mm_hash_long"):
+            raise AssertionError(f"phase 23 rank {r['rank']} launched {r['launches']}")
+    lines = [_without_timing(r["lines"]) for r in ranks]
+    if any(line != lines[0] for line in lines):
+        raise AssertionError(f"phase 23: the ranks' lines differ: {lines}")
+    if sorted(r["device"] for r in ranks) != [str(i) for i in range(world)]:
+        raise AssertionError(f"phase 23: ranks on cards {[r['device'] for r in ranks]}")
+    launches = {k: sum(r["launches"].get(k, 0) for r in ranks) for k in hash_cuda.launches}
+    print(json.dumps({"multihost_launches": launches}))
+    modes = {}
+    for mode in ("memory", "streamed"):
+        qs = ranks[0]["lines"][mode]["queries"]
+        modes[mode] = {
+            "args": MH_ARGS if mode == "memory" else C5_ARGS,
+            "harness_s": [r["harness_s"][mode] for r in ranks],
+            "queries": {q: {"wall_s": [r["lines"][mode]["queries"][q]["wall_s"] for r in ranks],
+                            "Mrows_per_s": [r["lines"][mode]["queries"][q]["Mrows_per_s"]
+                                            for r in ranks],
+                            "fact_rows": qs[q]["fact_rows"],
+                            "peak_reserved_bytes": qs[q]["peak_reserved_bytes"],
+                            **({"streamed": qs[q]["streamed"]} if "streamed" in qs[q] else {})}
+                        for q in qs},
+            "q97_counts": qs["q97"]["counts"], "q5_result_rows": qs["q5"]["result_rows"],
+            "q3_result_rows": qs["q3"]["result_rows"],
+            "mm_hash_long": [r["harness_launches"][mode] for r in ranks]}
+    print(json.dumps({"multihost": {
+        "world": world, "seconds": seconds,
+        "spawn_to_group_s": [r["spawn_to_group_s"] for r in ranks], "harness": modes,
+        "monte_carlo": [{k: r["monte_carlo"][k] for k in
+                         ("ok", "tasks_completed", "data_groups", "leaked_bytes",
+                          "blocked_at_end", "s")} for r in ranks],
+        "rank_mm_hash_long": [r["launches"]["mm_hash_long"] for r in ranks],
+        "summary": ranks[0]["summary"]}}))
+    return launches
+
+
+def multihost_alone():
+    """Phase 23 by itself: builds the kernels and makes the SF10 q97 tables'
+    oracle, then runs it.  ``python3 -c "import chip_smoke as c;
+    c.multihost_alone()"``."""
+    from spark_rapids_jni_tpu_torch.models.tpcds import generate_q97_tables
+
+    build()
+    store, catalog = generate_q97_tables(sf=Q97_SF, seed=42)
+    return multihost_phase({"oracle": q97_oracle(store, catalog)})
 
 
 def main() -> int:
@@ -6121,8 +6387,10 @@ def main() -> int:
     lap("serve")
     path_counts.append(supervisor_phase(q97, q67["want"], q67["tables"], direct))
     lap("supervisor")
+    path_counts.append(multihost_phase(q97))
+    lap("multihost")
     print(json.dumps({"phase_seconds": seconds, "total": sum(seconds.values())}))
-    for row in rows:  # the main path is now all sixteen paths: their launches add up
+    for row in rows:  # the main path is now all seventeen paths: their launches add up
         row["launches"] = sum(c[row["name"]] for c in path_counts)
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))

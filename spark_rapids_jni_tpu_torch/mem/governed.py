@@ -326,7 +326,7 @@ def run_with_split_retry(
         except OutOfBudget as e:
             fits = int(nbytes_of(piece)) <= budget.limit
             if group is not None:
-                fits = agreed_outcome(int(fits), group) == 1
+                fits = agreed_outcome(int(fits), group, gov) == 1
             if fits:
                 # the arbiter declared this non-retryable (livelock cap /
                 # unregistered thread): a real OOM, as in the reference
@@ -370,8 +370,8 @@ def attempt_once(gov, budget, piece, nbytes_of, run, *,
     reserves the piece's global working set, as the JAX package does.
     """
     nbytes = int(nbytes_of(piece))
-    admit = reservation if group is None else functools.partial(
-        _agreed_reservation, group=group)
+    admit = reservation if group is None or dist.get_world_size(group) == 1 \
+        else functools.partial(_agreed_reservation, group=group)
     gov.start_retry_block()
     retries = 0
     try:
@@ -400,47 +400,116 @@ _attempt = attempt_once
 
 
 # admission outcome codes agreed across a group: the worst (MAX) wins
-_OK, _RETRY, _SPLIT, _OUT_OF_BUDGET = 0, 1, 2, 3
+_OK, _WAIT, _RETRY, _SPLIT, _OUT_OF_BUDGET = 0, 1, 2, 3, 4
 _AGREED = {_RETRY: RetryOOM, _SPLIT: SplitAndRetryOOM, _OUT_OF_BUDGET: OutOfBudget}
 
 
-def agreed_outcome(code: int, group: dist.ProcessGroup) -> int:
+def agreed_outcome(code: int, group: dist.ProcessGroup,
+                   gov: Optional[MemoryGovernor] = None) -> int:
     """The MAX of every rank's ``code`` over ``group``: one ``all_reduce`` of
     one int32, on this rank's card for an NCCL group.  A group of one rank
-    agrees with itself, with no collective."""
+    agrees with itself, with no collective.
+
+    With ``gov``, the calling thread counts as blocked for ``gov``'s deadlock
+    check while it waits on its peers (``waiting_on_pool``, as a task thread
+    waiting on a pool).  When tasks of several ranks share each rank's
+    budget, task A may wait here on rank 0 for its half parked in rank 1's
+    arbiter while task B waits here on rank 1 for its half parked in rank
+    0's: counted as running, the waiters would keep either arbiter from
+    seeing all its tasks blocked, and neither would escalate."""
     if dist.get_world_size(group) == 1:
         return code
     dev = (torch.device("cuda", torch.cuda.current_device())
            if dist.get_backend(group) == "nccl" else torch.device("cpu"))
     t = torch.tensor([code], dtype=torch.int32, device=dev)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    if gov is not None:
+        gov.waiting_on_pool()
+    try:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    finally:
+        if gov is not None:
+            gov.done_waiting_on_pool()
     return int(t.item())
+
+
+def _outcome(fn) -> tuple:
+    """(code, exception) of calling ``fn``: _OK, or the admission signal it
+    raised."""
+    try:
+        fn()
+        return _OK, None
+    except RetryOOM as e:
+        return _RETRY, e
+    except SplitAndRetryOOM as e:
+        return _SPLIT, e
+    except OutOfBudget as e:
+        return _OUT_OF_BUDGET, e
+
+
+def _raise_agreed(agreed: int, code: int, err) -> None:
+    if agreed == code:
+        raise err
+    raise _AGREED[agreed](
+        f"admission outcome {agreed} agreed across the group "
+        f"(this rank's was {code})")
 
 
 @contextlib.contextmanager
 def _agreed_reservation(budget: BudgetedResource, nbytes: int, group):
-    """:func:`reservation` whose outcome every rank of ``group`` agrees on."""
-    held = contextlib.ExitStack()
-    code, err = _OK, None
+    """:func:`reservation` whose outcome every rank of ``group`` agrees on,
+    without holding bytes while a peer waits in its arbiter.
+
+    Each round, every rank first tries without parking
+    (``BudgetedResource.try_admit``: injected signals fire, spill handlers
+    run) and the outcomes are agreed.  All in: every rank holds its bytes
+    and runs.  A signal anywhere: every rank gives its bytes back and raises
+    the agreed signal.  Some rank short of room: every rank gives its bytes
+    back, waits for room through the arbiter's full protocol (``acquire``,
+    which may park, retry or split, then an immediate release), agrees on
+    that outcome, and tries again.  A rank that holds bytes thus waits only
+    for its peers' tries, never for a peer parked behind another task's
+    bytes -- the cross-rank cycle that tasks sharing each rank's budget
+    would otherwise close (:func:`agreed_outcome`)."""
+    gov = budget.gov
+    seam_on = _seam._profiler_range is not None or _seam._injector is not None
+    site = f"reserve:{'cpu' if budget.is_cpu else 'dev'}:{nbytes}"
+    while True:
+        got = [False]
+
+        def try_once():
+            if seam_on:
+                with _seam.seam(_seam.ALLOC, site):
+                    got[0] = budget.try_admit(nbytes)
+            else:
+                got[0] = budget.try_admit(nbytes)
+
+        code, err = _outcome(try_once)
+        if code == _OK and not got[0]:
+            code = _WAIT
+        try:
+            agreed = agreed_outcome(code, group)  # peers only try: a short wait
+        except BaseException:
+            if got[0]:
+                budget.release(nbytes)  # a failed collective must not leak it
+            raise
+        if agreed == _OK:
+            break
+        if got[0]:
+            budget.release(nbytes)
+        if agreed != _WAIT:
+            _raise_agreed(agreed, code, err)
+
+        def wait_for_room():
+            budget.acquire(nbytes)
+            budget.release(nbytes)
+
+        code, err = _outcome(wait_for_room)
+        agreed = agreed_outcome(code, group, gov)
+        if agreed != _OK:
+            _raise_agreed(agreed, code, err)
+    t0 = time.monotonic_ns()
     try:
-        held.enter_context(reservation(budget, nbytes))
-    except RetryOOM as e:
-        code, err = _RETRY, e
-    except SplitAndRetryOOM as e:
-        code, err = _SPLIT, e
-    except OutOfBudget as e:
-        code, err = _OUT_OF_BUDGET, e
-    try:
-        agreed = agreed_outcome(code, group)
-    except BaseException:
-        held.close()  # a failed collective must not leak the reservation
-        raise
-    if agreed != _OK:
-        held.close()
-        if agreed == code:
-            raise err
-        raise _AGREED[agreed](
-            f"admission outcome {agreed} agreed across the group "
-            f"(this rank's was {code})")
-    with held:
         yield
+    finally:
+        budget.release(nbytes)
+        _attrib.note_reservation(nbytes, time.monotonic_ns() - t0)

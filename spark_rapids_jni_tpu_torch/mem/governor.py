@@ -29,6 +29,8 @@ from spark_rapids_jni_tpu_torch.mem.arbiter import (
     OOM_ALL,
     OOM_CPU,
     OOM_GPU,
+    STATE_RUNNING,
+    STATE_UNKNOWN,
     current_thread_id,
 )
 from spark_rapids_jni_tpu_torch.obs import flight as _flight
@@ -288,6 +290,34 @@ class BudgetedResource:
         success with :meth:`release` (which wakes blocked tenants, so a
         cache demotion is immediately visible to parked live work)."""
         return self._try_reserve(int(nbytes))
+
+    def try_admit(self, nbytes: int) -> bool:
+        """One pass of :meth:`acquire`'s protocol that never parks: the
+        arbiter's alloc bracket runs, so an injected RetryOOM or
+        SplitAndRetryOOM fires here as it would in ``acquire``, and the
+        spill handlers are asked for room; when the bytes still do not fit
+        it returns False instead of blocking.  A thread the arbiter has
+        parked or escalated (any state but running) returns False without
+        trying: only ``acquire`` may serve its park."""
+        arb = self.gov.arbiter
+        tid = current_thread_id()
+        if arb.state_of(tid) not in (STATE_RUNNING, STATE_UNKNOWN):
+            return False
+        likely_spill = arb.pre_alloc(tid, is_cpu=self.is_cpu, blocking=False)
+        try:
+            ok = self._try_reserve(nbytes) or (
+                bool(self._spill_handlers) and self._spill_for(nbytes)
+                and self._try_reserve(nbytes))
+        except BaseException:
+            arb.post_alloc_failed(tid, is_cpu=self.is_cpu, is_oom=False,
+                                  blocking=False, was_recursive=likely_spill)
+            raise
+        if ok:
+            arb.post_alloc_success(tid, is_cpu=self.is_cpu, was_recursive=likely_spill)
+        else:
+            arb.post_alloc_failed(tid, is_cpu=self.is_cpu, is_oom=False,
+                                  blocking=False, was_recursive=likely_spill)
+        return ok
 
     def reset_peak(self) -> int:
         """Return the reservation high-water mark and restart it from the

@@ -72,6 +72,7 @@ class MonteCarloStats:
     blocked_at_end: int = 0
     cache_pins: int = 0
     cache_spills: int = 0
+    data_groups: int = 0                # distinct data-axis groups (q97 arm)
     failures: List[str] = dataclasses.field(default_factory=list)
 
     @property
@@ -262,7 +263,7 @@ def run_monte_carlo(cfg: MonteCarloConfig) -> MonteCarloStats:
 
 
 def run_q97_monte_carlo(n_tasks: int = 6, budget_frac: float = 0.6,
-                        seed: int = 0,
+                        seed: int = 0, ndev: Optional[int] = None,
                         device: Optional[str] = None) -> MonteCarloStats:
     """Monte-carlo over a REAL query: concurrent governed distributed q97
     runs under a shared tight budget with skewed keys.
@@ -272,23 +273,84 @@ def run_q97_monte_carlo(n_tasks: int = 6, budget_frac: float = 0.6,
     contention + escalation), and verifies the exact result against a host
     set oracle.  Success = every task exact, no leaks, no thread blocked.
 
-    The tasks share ONE rank: a (1, 1) mesh over a one-rank group that this
-    call makes (gloo for ``device="cpu"``, NCCL for the card) and takes down
-    again, so no process group may be initialised.  One process cannot issue
-    collectives on one group from several threads in a fixed order, so the
-    plan launches (``seam.COLLECTIVE``) are serialized by a lock, beneath
-    every task's reservation; the admission agreement of a one-rank group
-    needs no collective.  Tasks on several ranks at once are not covered.
+    The tasks run on ``ndev`` ranks: the world of an initialised process
+    group, where every rank makes this call with the same arguments and
+    runs every task (task ``i`` of each rank together, each rank under a
+    budget of its own), else 1, over a one-rank group made here (gloo for
+    ``device="cpu"``, NCCL for the card) and taken down again.  ``ndev``
+    other than that raises.
+
+    Departure from the JAX package, whose tasks share one mesh: each task
+    runs over a (ndev, 1) mesh of its own process groups, made on every
+    rank in task order before the task threads start (``new_group`` is
+    collective over the default group), so the plan's ``all_to_all`` and
+    ``all_reduce`` and the admission agreement of concurrent tasks never
+    share a communicator, and no lock serializes their launches.  The
+    groups are made explicitly: a mesh dim that spans the world would get
+    the default group from ``DeviceMesh``, the same one for every task.
+    ``MonteCarloStats.data_groups`` counts the distinct data-axis groups
+    the tasks ran over.
     """
+    import torch.distributed as dist
+
     from spark_rapids_jni_tpu_torch.parallel import one_rank_mesh
 
-    with one_rank_mesh(device) as mesh:
-        return _q97_tasks(mesh, n_tasks, budget_frac, seed)
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        if ndev not in (None, world):
+            raise ValueError(f"run_q97_monte_carlo: ndev={ndev}, but the process "
+                             f"group spans {world} ranks")
+        return _q97_tasks(world, n_tasks, budget_frac, seed, device)
+    if ndev not in (None, 1):
+        raise ValueError(f"run_q97_monte_carlo: ndev={ndev} needs a process group of "
+                         f"{ndev} ranks (parallel.multihost.initialize)")
+    with one_rank_mesh(device):
+        return _q97_tasks(1, n_tasks, budget_frac, seed, device)
 
 
-def _q97_tasks(mesh, n_tasks: int, budget_frac: float, seed: int) -> MonteCarloStats:
-    """The q97 arm's tasks on the one-rank ``mesh``."""
+def _task_meshes(ndev: int, n_tasks: int, device) -> tuple:
+    """One (ndev, 1) mesh per task over process groups of its own, made on
+    every rank in task order; returns the meshes, every group made and the
+    number of distinct data-axis groups among the meshes."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from spark_rapids_jni_tpu_torch import device as _device
+    from spark_rapids_jni_tpu_torch.parallel.mesh import (
+        DATA_AXIS,
+        MODEL_AXIS,
+        axis_group,
+        check_mesh_device,
+    )
+
+    dev = _device.resolve(device)
+    check_mesh_device(dev)
+    rank = dist.get_rank()
+    layout = torch.arange(ndev, dtype=torch.int64).reshape(ndev, 1)
+    meshes, made = [], []
+    for _ in range(n_tasks):
+        data = dist.new_group(list(range(ndev)))
+        model = None
+        for d in range(ndev):  # every rank makes every rank's model group
+            g = dist.new_group([d])
+            if d == rank:
+                model = g
+        made += [data, model]
+        meshes.append(DeviceMesh.from_group([data, model], dev.type, mesh=layout,
+                                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS)))
+    groups = [axis_group(m, DATA_AXIS) for m in meshes]
+    distinct = len({id(g) for g in groups})
+    if distinct != n_tasks or any(g is dist.group.WORLD for g in groups):
+        raise RuntimeError("run_q97_monte_carlo: two tasks share a data-axis group")
+    return meshes, made, distinct
+
+
+def _q97_tasks(ndev: int, n_tasks: int, budget_frac: float, seed: int,
+               device) -> MonteCarloStats:
+    """The q97 arm's tasks, each on a mesh of its own over ``ndev`` ranks."""
     import numpy as np
+    import torch.distributed as dist
 
     from spark_rapids_jni_tpu_torch.models.q97 import (
         Q97Batch,
@@ -296,10 +358,9 @@ def _q97_tasks(mesh, n_tasks: int, budget_frac: float, seed: int) -> MonteCarloS
         q97_working_set_bytes,
         run_distributed_q97,
     )
-    from spark_rapids_jni_tpu_torch.obs import seam as _seam
 
-    _seam.serialize_category(_seam.COLLECTIVE)
-    stats = MonteCarloStats()
+    meshes, made, data_groups = _task_meshes(ndev, n_tasks, device)
+    stats = MonteCarloStats(data_groups=data_groups)
     stats_lock = threading.Lock()
     gov = MemoryGovernor.initialize()
     try:
@@ -317,13 +378,13 @@ def _q97_tasks(mesh, n_tasks: int, budget_frac: float, seed: int) -> MonteCarloS
 
         full = max(
             q97_working_set_bytes(
-                Q97Batch(s[0], s[1], c[0], c[1], capacity=64), 1)
+                Q97Batch(s[0], s[1], c[0], c[1], capacity=64), ndev)
             for s, c in batches)
         budget = BudgetedResource(gov, int(full * budget_frac))
 
         def task(tid, store, catalog):
             out = run_distributed_q97(
-                mesh, store, catalog, budget=budget, task_id=tid,
+                meshes[tid], store, catalog, budget=budget, task_id=tid,
                 capacity=64)
             if (out.store_only, out.catalog_only, out.both) != \
                     q97_host_oracle(store, catalog):
@@ -348,6 +409,8 @@ def _q97_tasks(mesh, n_tasks: int, budget_frac: float, seed: int) -> MonteCarloS
         stats.blocked_at_end = gov.arbiter.total_blocked_or_bufn()
     finally:
         MemoryGovernor.shutdown()
+        for g in made:
+            dist.destroy_process_group(g)
     return stats
 
 
@@ -374,6 +437,9 @@ def main(argv=None) -> int:
                          "unless 'cpu'")
     args = ap.parse_args(argv)
     if args.workload == "q97":
+        from spark_rapids_jni_tpu_torch.parallel import initialize_multihost
+
+        initialize_multihost(device=args.device)  # a launch of several ranks
         stats = run_q97_monte_carlo(n_tasks=args.tasks, seed=args.seed,
                                     device=args.device)
         print(f"tasks_completed={stats.tasks_completed} "

@@ -11,10 +11,21 @@ along as the third query pattern.
         --stream-chunk-rows 1000000 --buckets 128
 
 Prints one JSON line (the JAX harness's keys): per-query wall-clock, rows
-processed, verification status.  It runs in one process on one card, over a
-(1, 1) mesh on a one-rank NCCL group (gloo when :func:`main` is given
-``device="cpu"``); a launch across processes (``WORLD_SIZE`` > 1) waits for
-the multi-host module and is refused.
+processed, verification status.  One process drives one card (NCCL takes one
+rank per card; gloo when :func:`main` is given ``device="cpu"``).  Alone, it
+runs over a (1, 1) mesh on a one-rank group it makes; launched as ranks, it
+joins their group through ``parallel.multihost.initialize`` and runs over
+``make_pod_mesh(mp=1)``::
+
+    torchrun --nproc_per_node 4 -m spark_rapids_jni_tpu_torch.models.nds_harness \\
+        --sf 10 --verify
+
+Every rank generates the same tables from ``--seed`` and runs its own data
+block of each query (``plans.plan_inputs``); every rank prints the line, with
+``"ndev"`` the world size.  Streamed, every rank stages the buckets in a
+temporary directory of its own and walks them in the same order, its host
+reservations agreed over the data axis, so the ranks split the same buckets
+on disk and issue the same collectives.
 """
 
 from __future__ import annotations
@@ -104,22 +115,16 @@ def _q97_tables_from_parquet(input_dir: str, n_splits: int):
 
 
 @contextlib.contextmanager
-def _one_rank_mesh(dev):
-    """A (1, 1) mesh on ``dev``: over the caller's group when one rank is
-    already initialised, else over a one-rank group made (and taken down)
-    here.  A launch of several ranks is refused."""
+def _mesh(dev):
+    """The harness's mesh on ``dev``: ``make_pod_mesh(mp=1)`` over every rank
+    of the process group when one is up (the launch's, or the caller's),
+    else a (1, 1) mesh over a one-rank group made (and taken down) here."""
     import torch.distributed as dist
 
-    from spark_rapids_jni_tpu_torch.parallel import make_mesh, one_rank_mesh
+    from spark_rapids_jni_tpu_torch.parallel import make_pod_mesh, one_rank_mesh
 
-    world = max(int(os.environ.get("WORLD_SIZE", "1")),
-                dist.get_world_size() if dist.is_initialized() else 1)
-    if world > 1:
-        raise NotImplementedError(
-            f"nds_harness runs on one process; a launch of {world} ranks needs "
-            "the multi-host module (parallel/multihost.py, ROADMAP A.16)")
     if dist.is_initialized():
-        yield make_mesh((1, 1), device=dev)
+        yield make_pod_mesh(mp=1, device=dev)
         return
     with one_rank_mesh(dev) as mesh:
         yield mesh
@@ -132,7 +137,8 @@ def main(argv=None, *, device=None) -> int:
         description="NDS q5+q97 (+q3) end-to-end harness")
     ap.add_argument("--sf", type=float, default=0.05)
     ap.add_argument("--ndev", type=int, default=0,
-                    help="0 = all devices; one process drives one card, so 0 or 1")
+                    help="0 = all ranks; one rank drives one card, so 0 or the "
+                         "world size")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--verify", action="store_true",
                     help="check results against host oracles (slow at big sf)")
@@ -151,20 +157,27 @@ def main(argv=None, *, device=None) -> int:
     ap.add_argument("--buckets", type=int, default=16,
                     help="key-space buckets for --stream-chunk-rows mode")
     args = ap.parse_args(argv)
-    if args.ndev not in (0, 1):
-        ap.error("--ndev: one process drives one card (0 or 1)")
 
     from spark_rapids_jni_tpu_torch import device as _device
+    from spark_rapids_jni_tpu_torch.parallel import initialize_multihost
 
     dev = _device.resolve(device)
-    with _one_rank_mesh(dev) as mesh:
-        out = _run(args, mesh, dev)
+    # join the launch's process group first: across ranks the harness must
+    # span every rank's card, not run once per rank
+    initialize_multihost(device=dev)
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.ndev not in (0, world):
+        ap.error(f"--ndev: one rank drives one card, so 0 or the world size ({world})")
+    with _mesh(dev) as mesh:
+        out = _run(args, mesh, dev, world)
     print(json.dumps(out))
     failed = any(q.get("verified") is False for q in out["queries"].values())
     return 1 if failed else 0
 
 
-def _run(args, mesh, dev) -> dict:
+def _run(args, mesh, dev, world) -> dict:
     """The three queries on ``mesh``; the JSON object ``main`` prints."""
     from spark_rapids_jni_tpu_torch.mem import BudgetedResource, MemoryGovernor
     from spark_rapids_jni_tpu_torch.models import (
@@ -179,7 +192,7 @@ def _run(args, mesh, dev) -> dict:
 
     gov = MemoryGovernor.initialize()
     budget = BudgetedResource(gov, 8 << 30)
-    out = {"sf": args.sf, "ndev": 1, "queries": {}}
+    out = {"sf": args.sf, "ndev": world, "queries": {}}
     if args.input:
         out["input"] = args.input
         out["splits_per_file"] = args.splits

@@ -96,6 +96,17 @@ def _bucket_span(mesh):
             _SPANS.append((start, end))
 
 
+def _ranks_group(mesh):
+    """The data axis's group when ``mesh`` spans several data ranks, else
+    None.  Every rank stages the same chunks into buckets of its own, so the
+    host reservations agree by construction; agreeing each outcome over the
+    group as well keeps the ranks' on-disk splits, and so their collectives,
+    in step should one rank's host budget ever decide otherwise."""
+    from spark_rapids_jni_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_size
+
+    return axis_group(mesh, DATA_AXIS) if axis_size(mesh, DATA_AXIS) > 1 else None
+
+
 def _timed_chunks(chunks: Iterable):
     """``chunks`` with the time spent drawing each one added to
     ``PHASES["generate"]``."""
@@ -399,6 +410,7 @@ def run_streaming_q5(
                         run=run_bucket,
                         split=split_piece,
                         combine=combine_pieces,
+                        group=_ranks_group(mesh),
                     )
                 else:
                     per, oracle_ok = run_bucket(b)
@@ -548,6 +560,7 @@ def run_streaming_q97(
                         run=run_bucket,
                         split=split_piece,
                         combine=combine_pieces,
+                        group=_ranks_group(mesh),
                     )
                 else:
                     got, oracle_ok = run_bucket(b)

@@ -1,3 +1,11 @@
+# ops first: parallel.shuffle reaches ops.hashing, whose package imports the
+# plan compiler, which imports parallel.shuffle again
+import spark_rapids_jni_tpu_torch.ops  # noqa: F401
+from spark_rapids_jni_tpu_torch.parallel.multihost import (
+    initialize as initialize_multihost,
+    is_multihost,
+    make_pod_mesh,
+)
 from spark_rapids_jni_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
@@ -35,6 +43,9 @@ __all__ = [
     "ShuffledTable",
     "all_to_all_shuffle",
     "bucket_by_partition",
+    "initialize_multihost",
+    "is_multihost",
+    "make_pod_mesh",
     "materialize_strings",
     "pad_strings",
     "partition_of",

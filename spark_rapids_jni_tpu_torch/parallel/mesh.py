@@ -48,6 +48,14 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None, *,
     dp, mp = (world, 1) if shape is None else shape
     if dp * mp != world:
         raise ValueError(f"mesh shape {(dp, mp)} != world size {world}")
+    check_mesh_device(dev)
+    return init_device_mesh(dev.type, (dp, mp), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+
+
+def check_mesh_device(dev: torch.device) -> None:
+    """Raise unless the initialised group's backend is ``dev``'s (NCCL for the
+    card, gloo for the CPU) and, on the card with ``LOCAL_RANK`` set, the
+    current CUDA device is that card."""
     backend = str(dist.get_backend())
     if _BACKEND.get(dev.type) != backend:
         raise RuntimeError(f"make_mesh: a {dev.type} mesh needs the "
@@ -58,7 +66,6 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None, *,
         raise RuntimeError(f"make_mesh: LOCAL_RANK is {local_rank} but the current CUDA "
                            f"device is cuda:{torch.cuda.current_device()}; call "
                            f"torch.cuda.set_device({local_rank}) first")
-    return init_device_mesh(dev.type, (dp, mp), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 
 @contextlib.contextmanager

@@ -1,7 +1,7 @@
 """Cross-process RPC for crash-only serving: the executor-worker side (a copy
 of the JAX package's ``serve/rpc.py``, but for the worker's device, its
 budget on a shared card and its warm-up before ``HELLO``: see
-:func:`executor_worker_main`).
+:func:`executor_worker_main`; and for :class:`SafeConn`'s framing, below).
 
 Spark's real resilience layer sits ABOVE the resource adaptor this repo
 reproduces: executors die and the driver re-dispatches their tasks.  This
@@ -20,6 +20,18 @@ Protocol (plain tuples, first element the tag — pickled by the pipe):
 - ``(RESULT, rid, status, value, (err_type, err_msg) | None)``
 - ``(SHUTDOWN, dump_epilogue)``                   drain and exit
 
+Framing (the port's departure from the JAX package, which keeps the fault
+this repairs): each message is pickled once (protocol 5) and crosses the pipe
+as frames.  A message of up to :data:`CHUNK_THRESHOLD` bytes is one frame.
+A larger one -- its pickle, plus each array buffer of more than
+:data:`CHUNK_THRESHOLD` bytes, kept out of band and never copied into it --
+goes as a header and :data:`CHUNK_BYTES` chunks, each sent under the send
+lock on its own, so a heartbeat waits for one chunk, never for a whole
+result of hundreds of MB (with the JAX package's one-message send it waited
+for all of it and missed its budget).  The receiver reassembles the parts by
+message id and unpickles the arrays over its own buffers.  Both ends of a
+pipe must be :class:`SafeConn`.
+
 Crash-only discipline: the worker never tries to hand off state on the way
 down.  A SIGKILL (injected ``proc_kill`` fault, OOM killer, operator) just
 drops the pipe; the supervisor's receiver sees EOF, declares the worker
@@ -37,16 +49,24 @@ per-process dumps into one cross-process request timeline.
 from __future__ import annotations
 
 import importlib
+import io
+import itertools
 import os
+import pickle
+import socket
+import struct
 import threading
 import time
+from multiprocessing.reduction import ForkingPickler
 from typing import Callable, Optional
+
+import numpy as np
 
 __all__ = [
     "MSG_HELLO", "MSG_BEAT", "MSG_DISPATCH", "MSG_RESULT", "MSG_SHUTDOWN",
     "MSG_SHUFFLE_PRODUCED", "MSG_SHUFFLE_ACK", "MSG_SHUFFLE_MAP",
     "MSG_SHUFFLE_CLEANUP", "MSG_PRESSURE", "MSG_TELEMETRY",
-    "MSG_TABLE_BUMP", "MESSAGE_FIELDS",
+    "MSG_TABLE_BUMP", "MESSAGE_FIELDS", "CHUNK_THRESHOLD", "CHUNK_BYTES",
     "SafeConn", "resolve_factory", "executor_worker_main",
     "set_shuffle_sink", "shuffle_uplink",
 ]
@@ -138,6 +158,57 @@ MESSAGE_FIELDS = {
 STATUS_BUSY = "busy"        # worker queue full — supervisor re-queues
 
 
+#: a message whose pickle is larger than this crosses the pipe in chunks
+CHUNK_THRESHOLD = 1 << 20
+#: pickled bytes per chunk: what a heartbeat may wait behind
+CHUNK_BYTES = 256 << 10
+
+# frame kinds: a whole message; the header of a chunked one (its id, its
+# part count, then each part's size: the pickle, then its out-of-band
+# buffers); one chunk of one part
+_WHOLE = b"M"
+_HEAD = b"H"
+_CHUNK = b"C"
+_HEAD_FIXED = struct.Struct("<QQ")  # message id, parts
+_SIZE = struct.Struct("<Q")
+_CHUNK_HEAD = struct.Struct("<QQQ")  # message id, part, offset
+
+
+class _Pickler(pickle.Pickler):
+    """``ForkingPickler`` (what ``Connection.send`` pickles with, so the same
+    reducers apply) at protocol 5 with a ``buffer_callback``, which
+    ``ForkingPickler`` does not pass through."""
+
+    def __init__(self, file, buffer_callback):
+        super().__init__(file, 5, buffer_callback=buffer_callback)
+        self.dispatch_table = ForkingPickler._copyreg_dispatch_table.copy()
+        self.dispatch_table.update(ForkingPickler._extra_reducers)
+
+
+class _TicketLock:
+    """A first-come, first-served lock.  ``threading.Lock`` hands no turn to
+    its waiters: a sender that releases it between chunks and takes it again
+    at once could starve a heartbeat for a whole message."""
+
+    def __init__(self):
+        self._cv = threading.Condition(threading.Lock())
+        self._next = 0
+        self._serving = 0
+
+    def __enter__(self):
+        with self._cv:
+            me = self._next
+            self._next += 1
+            while self._serving != me:
+                self._cv.wait()
+        return self
+
+    def __exit__(self, *exc):
+        with self._cv:
+            self._serving += 1
+            self._cv.notify_all()
+
+
 class SafeConn:
     """A ``multiprocessing`` connection that survives its peer dying.
 
@@ -147,6 +218,13 @@ class SafeConn:
     and a crashing send inside a waiter thread would just add noise.
     ``recv`` returns None on EOF for the same reason.
 
+    A message is pickled once, outside the send lock, and sent as frames
+    (module docstring): one frame, or a header and :data:`CHUNK_BYTES`
+    chunks when it holds more than :data:`CHUNK_THRESHOLD` bytes, each chunk
+    under the lock on its own and the lock served in arrival order, so a
+    beat goes between two chunks of a large result.  ``recv`` reassembles
+    the parts of each message.
+
     ``send`` is also BOUNDED-TIME: a live peer that stops draining its
     pipe (wedged receive loop) would otherwise block the sender forever
     while it holds the send lock — heartbeats stop, the sender looks
@@ -154,9 +232,12 @@ class SafeConn:
     waiting for pipe writability the send surfaces as backpressure
     instead: an ``EV_TASK_HUNG`` flight event plus a False return, which
     callers already map to the unreachable-peer path.  (The guard bounds
-    the wait for buffer SPACE; a message larger than the freed buffer can
-    still block in the write itself — supervision's hung-lease bound
-    remains the backstop of last resort.)
+    the wait for buffer SPACE before each frame; a frame is at most a chunk,
+    so no single write outlasts a chunk's drain.)
+
+    ``shutdown`` wakes a thread blocked in ``recv`` (EOF) and a sender
+    blocked in a write, but keeps the descriptor: its number is not handed
+    to a new pipe until ``close``, which waits for a send in progress.
     """
 
     def __init__(self, conn, send_timeout_s: Optional[float] = None):
@@ -166,37 +247,38 @@ class SafeConn:
             send_timeout_s = float(config.get("serve_send_timeout_s"))
         self._conn = conn
         self._send_timeout_s = float(send_timeout_s)
-        self._send_lock = threading.Lock()
+        self._send_lock = _TicketLock()
+        self._ids = itertools.count()
+        # message id -> [part buffers, bytes still to come]; touched by the
+        # one receiving thread only
+        self._partial: dict = {}
 
     def send(self, msg: tuple) -> bool:
         try:
-            with self._send_lock:
-                if self._send_timeout_s > 0:
-                    import select
+            out, bufs = io.BytesIO(), []
 
-                    ready = select.select(
-                        [], [self._conn.fileno()], [],
-                        self._send_timeout_s)[1]
-                    if not ready:
-                        from spark_rapids_jni_tpu_torch.obs import (
-                            flight as _flight,
-                        )
+            def out_of_band(buf) -> bool:  # False: this buffer goes out of band
+                if buf.raw().nbytes <= CHUNK_THRESHOLD:
+                    return True
+                bufs.append(buf.raw())
+                return False
 
-                        _flight.record(
-                            _flight.EV_TASK_HUNG, -1,
-                            detail=f"pipe_send_stalled:"
-                                   f"{self._send_timeout_s:g}s:"
-                                   f"tag:{msg[0] if msg else '?'}")
+            _Pickler(out, out_of_band).dump(msg)
+            data = out.getbuffer()
+            tag = msg[0] if msg else "?"
+            if not bufs and len(data) <= CHUNK_THRESHOLD:
+                return self._send_frame(_WHOLE + data, tag)
+            mid, parts = next(self._ids), [data, *bufs]
+            head = _HEAD + _HEAD_FIXED.pack(mid, len(parts)) + b"".join(
+                _SIZE.pack(p.nbytes) for p in parts)
+            if not self._send_frame(head, tag):
+                return False
+            for i, part in enumerate(parts):
+                for off in range(0, part.nbytes, CHUNK_BYTES):
+                    frame = (_CHUNK + _CHUNK_HEAD.pack(mid, i, off)
+                             + part[off:off + CHUNK_BYTES])
+                    if not self._send_frame(frame, tag):
                         return False
-                # analyze: ignore[blocking-under-lock] - the send lock
-                # EXISTS to serialize this pipe write (heartbeat thread +
-                # result waiters share one fd; interleaved pickles would
-                # corrupt the stream), and the select() guard above
-                # bounds the wait for buffer space, so this is the one
-                # place a pipe write may block while holding it.  The
-                # hung-lease supervision bound backstops the residual
-                # giant-message case (class docstring).
-                self._conn.send(msg)
             return True
         # analyze: ignore[retry-protocol] - pipe serialization crosses no
         # seam and launches no governed work: nothing here can originate a
@@ -206,17 +288,80 @@ class SafeConn:
         except Exception:  # noqa: BLE001
             return False
 
+    def _send_frame(self, frame: bytes, tag) -> bool:
+        with self._send_lock:
+            if self._send_timeout_s > 0:
+                import select
+
+                ready = select.select(
+                    [], [self._conn.fileno()], [],
+                    self._send_timeout_s)[1]
+                if not ready:
+                    from spark_rapids_jni_tpu_torch.obs import (
+                        flight as _flight,
+                    )
+
+                    _flight.record(
+                        _flight.EV_TASK_HUNG, -1,
+                        detail=f"pipe_send_stalled:"
+                               f"{self._send_timeout_s:g}s:tag:{tag}")
+                    return False
+            # analyze: ignore[blocking-under-lock] - the send lock
+            # EXISTS to serialize this pipe write (heartbeat thread +
+            # result waiters share one fd; interleaved frames would
+            # corrupt the stream), and the select() guard above bounds
+            # the wait for buffer space, so this is the one place a pipe
+            # write may block while holding it -- for one frame at most.
+            self._conn.send_bytes(frame)
+        return True
+
     def recv(self) -> Optional[tuple]:
         try:
-            return self._conn.recv()
+            while True:
+                frame = self._conn.recv_bytes()
+                kind, view = frame[:1], memoryview(frame)
+                if kind == _WHOLE:
+                    return ForkingPickler.loads(view[1:])
+                if kind == _HEAD:
+                    mid, nparts = _HEAD_FIXED.unpack_from(frame, 1)
+                    at = 1 + _HEAD_FIXED.size
+                    sizes = [_SIZE.unpack_from(frame, at + _SIZE.size * i)[0]
+                             for i in range(nparts)]
+                    # uninitialised host buffers: every byte is written by a chunk
+                    self._partial[mid] = [[np.empty(n, np.uint8) for n in sizes],
+                                          sum(sizes)]
+                else:
+                    mid, i, off = _CHUNK_HEAD.unpack_from(frame, 1)
+                    body = view[1 + _CHUNK_HEAD.size:]
+                    part = self._partial[mid]
+                    part[0][i][off:off + len(body)] = body
+                    part[1] -= len(body)
+                if self._partial.get(mid, (None, 1))[1] == 0:
+                    parts = self._partial.pop(mid)[0]
+                    return ForkingPickler.loads(parts[0], buffers=parts[1:])
         except (EOFError, OSError):
             return None
 
-    def close(self) -> None:
+    def shutdown(self) -> None:
+        """Shut the connection's socket down both ways, keeping its
+        descriptor open (a no-op where the pipe is not a socket)."""
         try:
-            self._conn.close()
+            s = socket.socket(fileno=os.dup(self._conn.fileno()))
+        except (OSError, ValueError):
+            return
+        try:
+            s.shutdown(socket.SHUT_RDWR)
         except OSError:
             pass
+        finally:
+            s.close()
+
+    def close(self) -> None:
+        with self._send_lock:
+            try:
+                self._conn.close()
+            except OSError:
+                pass
 
 
 # --------------------------------------------------------------------------

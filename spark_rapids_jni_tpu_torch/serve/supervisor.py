@@ -1,9 +1,15 @@
 """Crash-only serving: supervised multi-process failure domains (a copy of
 the JAX package's ``serve/supervisor.py``; its workers are the port's
 ``serve/rpc.py`` executor processes, on the card unless their
-``worker_cfg["device"]`` asks for the CPU).  One departure: each worker's
+``worker_cfg["device"]`` asks for the CPU).  Two departures.  Each worker's
 pipe gets wide socket buffers (:data:`PIPE_BUFFER_BYTES`), because shuffle
-shards cross it whole.
+shards cross it whole.  And a dead worker's pipe is shut down, not closed,
+by whoever declares the death: its receive thread wakes with EOF and closes
+the descriptor as it leaves its loop, and the loop stops at once for a dead
+incarnation.  The JAX package closes the pipe under a receive thread that
+may be inside a message, so a respawn's pipe could take the descriptor's
+number and that thread read the respawn's bytes ("invalid load key"), after
+which no death was noticed; it keeps that fault.
 
 The reference's ``SparkResourceAdaptor`` arbitrates memory *within* one
 executor; Spark's actual resilience lives one layer up, where the driver
@@ -786,8 +792,21 @@ class Supervisor:
                               f"pid:{proc.pid}")
 
     def _recv_loop(self, handle: _ExecutorHandle) -> None:
+        try:
+            self._recv_messages(handle)
+        finally:
+            # the descriptor goes only once this incarnation's loop has
+            # left it: a respawn's pipe cannot take its number while this
+            # thread may still read (the death path only shuts it down)
+            handle.conn.close()
+
+    def _recv_messages(self, handle: _ExecutorHandle) -> None:
         while True:
             msg = handle.conn.recv()
+            with self._lock:
+                dead = handle.health == _DEAD
+            if dead:
+                return  # declared dead: nothing more is read from this pipe
             if msg is None:
                 # EOF during shutdown is the worker draining on request,
                 # not a death — only a LIVE supervisor treats it as one
@@ -870,7 +889,10 @@ class Supervisor:
             handle.proc.kill()
         except (OSError, ValueError, AttributeError):
             pass
-        handle.conn.close()
+        if handle.recv_thread is None:
+            handle.conn.close()
+        else:  # wake it with EOF: it closes the descriptor itself
+            handle.conn.shutdown()
         for rid in dead_hedges:
             self.metrics.count("hedge_losses")
             _flight.record(_flight.EV_HEDGE_LOSE, rid,
@@ -1859,6 +1881,9 @@ class Supervisor:
                     h.proc.kill()
                     h.proc.join(timeout=2.0)
             if h.conn is not None:
+                if h.recv_thread is not None:
+                    h.conn.shutdown()
+                    h.recv_thread.join(timeout=5.0)
                 h.conn.close()
         for t in (self._dispatcher, self._monitor):
             if t is not None:

@@ -324,6 +324,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import spark_rapids_jni_tpu_torch.ops._build, spark_rapids_jni_tpu_torch.ops.hash_cuda\n"
         "import spark_rapids_jni_tpu_torch.parallel, spark_rapids_jni_tpu_torch.models\n"
         "import spark_rapids_jni_tpu_torch.parallel.mesh\n"
+        "import spark_rapids_jni_tpu_torch.parallel.multihost\n"
         "import spark_rapids_jni_tpu_torch.parallel.shuffle\n"
         "import spark_rapids_jni_tpu_torch.parallel.table_shuffle\n"
         "import spark_rapids_jni_tpu_torch.models.nds, spark_rapids_jni_tpu_torch.models.q97\n"

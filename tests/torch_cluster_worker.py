@@ -34,7 +34,10 @@ def register_toy(engine, service_s: float = 0.0, device=None) -> None:
       seen (the re-dispatched attempt on a survivor returns fast);
     - ``boom``: always raises ValueError (remote-error propagation);
     - ``hash32``: Spark's murmur3 of an int64 array with seed 42 on the
-      engine's device (``mm_hash_long`` on the card).
+      engine's device (``mm_hash_long`` on the card);
+    - ``big``: payload ``(n, marker)``, returns ``n`` bytes of 7 as a uint8
+      array, first appending this worker's pid to the file ``marker`` (a
+      result large enough to cross the pipe in many chunks).
     """
     _check_device(engine, device)
 
@@ -86,6 +89,17 @@ def register_toy(engine, service_s: float = 0.0, device=None) -> None:
 
     engine.register(QueryHandler(name="hash32", fn=run_hash32,
                                  nbytes_of=lambda p: 12 * len(p)))
+
+    def run_big(p, ctx):
+        import numpy as np
+
+        n, marker = p
+        out = np.full(int(n), 7, np.uint8)
+        with open(marker, "a") as f:
+            f.write(f"{os.getpid()}\n")
+        return out
+
+    engine.register(QueryHandler(name="big", fn=run_big))
 
 
 def register_shuffle(engine, capacity: int = 64, map_delay_s: float = 0.0,
