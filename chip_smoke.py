@@ -1558,10 +1558,10 @@ def _plans_calls(mesh, b):
 
 
 def _cache_counts():
-    from spark_rapids_jni_tpu_torch.models.q3 import _q3_columns_step
+    from spark_rapids_jni_tpu_torch.models.q3 import _q3_columns_step_cached
     from spark_rapids_jni_tpu_torch.plans import plan_cache
 
-    s, info = plan_cache.stats(), _q3_columns_step.cache_info()
+    s, info = plan_cache.stats(), _q3_columns_step_cached.cache_info()
     return {"hits": s["hits"], "traces": s["traces"], "step_hits": info.hits,
             "step_misses": info.misses}
 
@@ -5071,6 +5071,118 @@ def observability(mesh, q97, json_col, device="cuda"):
     return counts
 
 
+# ---- phase 20, its seam crossings ---------------------------------------------
+
+SEAM_SEED = 20  # numpy seed of the step's batch and of the q97 and q3 tables
+SEAM_ROWS = 1 << 20  # rows of the flagship step's batch
+SEAM_Q97_SF, SEAM_Q3_SF = 0.1, 5.0  # 280,000 rows per q97 fact table, 600,000 of q3
+SEAM_LAUNCHES = {"xx_hash_fixed8": 2, "mm_hash_long": 8}  # two steps, two q97 calls
+
+
+def _seam_calls(mesh, cfg, device):
+    """The flagship step, q97 and q3's decimal-columns runner on ``mesh``,
+    each built once and called twice on ``device`` with the SEAM_* inputs;
+    returns each entry point's ordered ``[category, name]`` crossings and its
+    answers as numpy."""
+    from spark_rapids_jni_tpu_torch.mem import BudgetedResource, MemoryGovernor
+    from spark_rapids_jni_tpu_torch.models import (
+        make_distributed_q97,
+        make_distributed_query_step,
+        run_distributed_q3_columns,
+    )
+    from spark_rapids_jni_tpu_torch.models.q97 import default_q97_capacity
+    from spark_rapids_jni_tpu_torch.models.tpcds import generate_q3_data, generate_q97_tables
+    from spark_rapids_jni_tpu_torch.obs import seam
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    rng = np.random.RandomState(SEAM_SEED)
+    batch = [t(rng.randint(0, 1 << 20, SEAM_ROWS, dtype=np.int64)),
+             t(rng.randint(0, 1000, SEAM_ROWS, dtype=np.int64))]
+    store, catalog = generate_q97_tables(sf=SEAM_Q97_SF, seed=SEAM_SEED)
+    tables = [t(a) for a in (*store, *catalog)]
+    cap = default_q97_capacity(len(store[0]) + len(catalog[0]), 1)
+    q3 = generate_q3_data(sf=SEAM_Q3_SF, seed=SEAM_SEED)
+    gov = MemoryGovernor(watchdog_period_s=0.02)
+    calls = {
+        "query_step": (lambda: make_distributed_query_step(mesh, cfg),
+                       lambda step: [x.cpu().numpy() for x in step(*batch)]),
+        "q97": (lambda: make_distributed_q97(mesh, cap),
+                lambda step: [x.cpu().numpy() for x in step(*tables)]),
+        "q3_columns": (lambda: BudgetedResource(gov, 1 << 30),
+                       lambda budget: [tuple(r) for r in run_distributed_q3_columns(
+                           mesh, q3, budget=budget, task_id=OBS_TASK + 1)]),
+    }
+    crossings, answers = {}, {}
+    try:
+        for name, (build, call) in calls.items():
+            seen = []
+            seam._set_injector(lambda category, n: seen.append([category, n]))
+            try:
+                built = build()
+                answers[name] = [call(built) for _ in range(2)]
+            finally:
+                seam._set_injector(None)
+            crossings[name] = seen
+    finally:
+        gov.close()
+    return crossings, answers
+
+
+def seams_on_cpu(cfg):
+    """The seam calls on CPU tensors, over a one-rank gloo mesh of their own:
+    made before phase 20's NCCL group, which is the process's one group."""
+    from spark_rapids_jni_tpu_torch.parallel import one_rank_mesh
+
+    t0 = time.perf_counter()
+    with one_rank_mesh("cpu") as mesh:
+        crossings, answers = _seam_calls(mesh, cfg, "cpu")
+    return {"crossings": crossings, "answers": answers, "seconds": time.perf_counter() - t0}
+
+
+def obs_seams(mesh, cfg, cpu, device="cuda"):
+    """Phase 20's seam check: the crossings of the flagship step, q97 and q3's
+    decimal-columns runner on the card, each built once and called twice,
+    held equal to the same calls on CPU tensors (``cpu``, from
+    :func:`seams_on_cpu`), and their answers bit-equal.  The launches are
+    counted from 0 over the card's calls.  Prints the ``obs_seams`` line and
+    returns the counts."""
+    from spark_rapids_jni_tpu_torch.ops import hash_cuda
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    hash_cuda.reset_launches()
+    crossings, answers = _seam_calls(mesh, cfg, device)
+    torch.cuda.synchronize()
+    counts = dict(hash_cuda.launches)
+    card_s = time.perf_counter() - t0
+    same_answers = {name: all(len(got) == len(want) and all(
+        np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y for x, y in zip(got, want))
+        for got, want in zip(a, cpu["answers"][name])) for name, a in answers.items()}
+    print(json.dumps({"obs_seams": {
+        "card": crossings, "cpu": cpu["crossings"],
+        "equal": crossings == cpu["crossings"], "answers_equal": same_answers,
+        "launches": counts, "card_s": card_s, "cpu_s": cpu["seconds"],
+        "rows": {"query_step": SEAM_ROWS, "q97_sf": SEAM_Q97_SF, "q3_sf": SEAM_Q3_SF}}}))
+    if crossings != cpu["crossings"]:
+        raise AssertionError("phase 20: the card's seam crossings differ from the CPU's")
+    want = {"query_step": [["collective", "all_to_all_shuffle"]],
+            "q97": [["collective", "all_to_all_shuffle"]]}
+    for name, w in want.items():
+        if crossings[name] != w:
+            raise AssertionError(f"phase 20: {name} crossed {crossings[name]}, not {w}")
+    q3_names = [n for _c, n in crossings["q3_columns"]]
+    if (q3_names.count("q3_columns_step"), q3_names.count("q3_columns_batch_upload"),
+            q3_names.count("launch:q3_columns_step")) != (1, 2, 2):
+        raise AssertionError(f"phase 20: q3_columns crossed {crossings['q3_columns']}")
+    if not all(same_answers.values()):
+        raise AssertionError(f"phase 20: card answers differ from the CPU's: {same_answers}")
+    if {k: v for k, v in counts.items() if v} != SEAM_LAUNCHES:
+        raise AssertionError(f"phase 20 seams launched {counts}, not {SEAM_LAUNCHES}")
+    return counts
+
+
 # ---- the serving engine (phase 21) ------------------------------------------
 
 SERVE_SEED = 79  # numpy seed of the hash32 payloads and of the traffic's order
@@ -6379,8 +6491,10 @@ def main() -> int:
     lap("config5")
     path_counts.append(ops_tail(rates))
     lap("ops_tail")
+    cpu_seams = seams_on_cpu(cfg)
     with one_rank_mesh("cuda") as mesh:
         path_counts.append(observability(mesh, q97, json_head))
+        path_counts.append(obs_seams(mesh, cfg, cpu_seams))
         lap("observability")
         serve_counts, direct = serve_phase(mesh, q97, gp, json_head)
         path_counts.append(serve_counts)
@@ -6390,7 +6504,7 @@ def main() -> int:
     path_counts.append(multihost_phase(q97))
     lap("multihost")
     print(json.dumps({"phase_seconds": seconds, "total": sum(seconds.values())}))
-    for row in rows:  # the main path is now all seventeen paths: their launches add up
+    for row in rows:  # the main path is now all eighteen paths: their launches add up
         row["launches"] = sum(c[row["name"]] for c in path_counts)
     print(_nvidia_smi("name,power.limit", units=True))
     print(json.dumps({"kernels": rows}))

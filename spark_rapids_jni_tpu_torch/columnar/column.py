@@ -25,6 +25,7 @@ import torch
 
 from spark_rapids_jni_tpu_torch import device as _device
 from spark_rapids_jni_tpu_torch.columnar.dtypes import DType, Kind, LIST, STRING, STRUCT
+from spark_rapids_jni_tpu_torch.obs.seam import TRANSFER, instrument
 
 
 def _apply_nulls(vals: list, validity: Optional[torch.Tensor]) -> list:
@@ -286,6 +287,7 @@ def _validity_from(values: Sequence, dev: torch.device) -> Optional[torch.Tensor
     return None
 
 
+@instrument(TRANSFER, "column")
 def column(values: Sequence, dtype: DType, device: _device.DeviceLike = None) -> Column:
     """Build a fixed-width Column from a python sequence (None == null) on
     ``device`` (the card unless the caller asks for the CPU)."""
@@ -300,6 +302,7 @@ def column(values: Sequence, dtype: DType, device: _device.DeviceLike = None) ->
     return Column(torch.from_numpy(arr).to(dev), _validity_from(values, dev), dtype)
 
 
+@instrument(TRANSFER, "decimal128_column")
 def decimal128_column(unscaled: Sequence, precision: int, scale: int,
                       device: _device.DeviceLike = None) -> Decimal128Column:
     """Build a Decimal128Column from python-int unscaled values (None == null)."""
@@ -351,9 +354,8 @@ def strings_from_padded(padded: torch.Tensor, lengths: torch.Tensor,
     return StringColumn(padded[in_row], offsets, validity)
 
 
-def strings_from_bytes(values: Sequence[Optional[bytes]],
-                       device: _device.DeviceLike = None) -> StringColumn:
-    """Build a StringColumn from raw byte strings (None == null)."""
+def _strings_from_bytes(values: Sequence[Optional[bytes]],
+                        device: _device.DeviceLike) -> StringColumn:
     bufs = [b"" if v is None else v for v in values]
     offsets = np.zeros(len(bufs) + 1, dtype=np.int32)
     offsets[1:] = np.cumsum([len(b) for b in bufs], dtype=np.int64)
@@ -362,12 +364,22 @@ def strings_from_bytes(values: Sequence[Optional[bytes]],
     return strings_from_arrays(chars, offsets, None if all(validity) else validity, device)
 
 
+@instrument(TRANSFER, "strings_from_bytes")
+def strings_from_bytes(values: Sequence[Optional[bytes]],
+                       device: _device.DeviceLike = None) -> StringColumn:
+    """Build a StringColumn from raw byte strings (None == null)."""
+    return _strings_from_bytes(values, device)
+
+
+@instrument(TRANSFER, "strings_column")
 def strings_column(values: Sequence[Optional[str]],
                    device: _device.DeviceLike = None) -> StringColumn:
     """Build a StringColumn from python strings (None == null).  Unpaired
     surrogates are encoded with surrogatepass, matching the JVM's permissive
-    UTF-8 handling in the reference tests."""
-    return strings_from_bytes(
+    UTF-8 handling in the reference tests.  Crosses its own seam only, as the
+    JAX package's does: it shares an unseamed body with
+    :func:`strings_from_bytes`."""
+    return _strings_from_bytes(
         [None if v is None else v.encode("utf-8", errors="surrogatepass") for v in values],
         device)
 

@@ -12,7 +12,6 @@ plain torch and ``torch.distributed``.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -29,7 +28,11 @@ from spark_rapids_jni_tpu_torch.parallel.mesh import (
     axis_index,
     axis_size,
 )
-from spark_rapids_jni_tpu_torch.parallel.shuffle import all_to_all_shuffle, partition_of
+from spark_rapids_jni_tpu_torch.parallel.shuffle import (
+    ShuffleCrossing,
+    all_to_all_shuffle,
+    partition_of,
+)
 
 _M32 = 0xFFFFFFFF
 
@@ -157,8 +160,18 @@ def make_distributed_query_step(mesh: DeviceMesh, cfg: QueryStepConfig):
     shard of ``keys`` and ``values`` (rows sharded over ``data``, replicated
     over ``model``) and that returns this rank's :class:`QueryStepOut`.
     Concatenated over the data axis, the ranks' bucket sums and counts are the
-    JAX package's global outputs; over the model axis, their bloom bits."""
-    return functools.partial(_sharded_step, cfg=cfg, mesh=mesh)
+    JAX package's global outputs; over the model axis, their bloom bits.
+
+    The callable crosses ``seam(COLLECTIVE, "all_to_all_shuffle")`` once per
+    input signature, at its first call with it and before any launch, where
+    the JAX package's jit traces the step (:class:`ShuffleCrossing`)."""
+    crossing = ShuffleCrossing()
+
+    def step(keys: torch.Tensor, values: torch.Tensor) -> QueryStepOut:
+        crossing(keys, values)
+        return _sharded_step(keys, values, cfg, mesh)
+
+    return step
 
 
 def make_example_batch(n: int, seed: int = 0,

@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from spark_rapids_jni_tpu_torch import device as _device
 from spark_rapids_jni_tpu_torch.models.tpcds import Q3Data
+from spark_rapids_jni_tpu_torch.obs.seam import COLLECTIVE, COMPILE, TRANSFER, seam
 from spark_rapids_jni_tpu_torch.parallel.mesh import DATA_AXIS, axis_group
 from spark_rapids_jni_tpu_torch.parallel.shuffle import quantized_rows
 from spark_rapids_jni_tpu_torch.plans import ir
@@ -337,14 +338,24 @@ def _dec_partials(ss_item, ss_date, price, item_brand, item_manufact,
     return _DecPartials(hi, lo, counts)
 
 
-@functools.lru_cache(maxsize=32)
 def _q3_columns_step(mesh, geo_items: tuple):
     """The decimal-columns device step for ``mesh`` (None: one device) and the geometry
     ``tuple(sorted(_geometry(data).items()))``: a callable that each rank
     calls with its data shard of ``ss_item``/``ss_date`` (INT32 Columns) and
     ``price`` (a Decimal128Column), and the four dim tensors whole; returns
-    the global (hi, lo, counts) of every group."""
-    return functools.partial(_dec_partials, mesh=mesh, **dict(geo_items))
+    the global (hi, lo, counts) of every group.  Cached per mesh, its data
+    axis's process group (a group made again gets its step again, as a
+    mesh plan does) and geometry."""
+    group = None if mesh is None else axis_group(mesh, DATA_AXIS)
+    return _q3_columns_step_cached(mesh, group, geo_items)
+
+
+@functools.lru_cache(maxsize=32)
+def _q3_columns_step_cached(mesh, group, geo_items: tuple):
+    """Builds the step, crossing ``seam(COMPILE, "q3_columns_step")`` once per
+    cache miss, where the JAX package builds and jits its step."""
+    with seam(COMPILE, "q3_columns_step"):
+        return functools.partial(_dec_partials, mesh=mesh, **dict(geo_items))
 
 
 def _price_limbs(price: np.ndarray):
@@ -442,11 +453,17 @@ def run_distributed_q3_columns(mesh, data: Q3Data, *, budget=None, task_id: int 
         def put(v):  # this rank's data block of a padded fact array
             return torch.from_numpy(np.ascontiguousarray(v[d * m:(d + 1) * m])).to(dev)
 
-        out = step(Column(put(padded["ss_item"]), put(padded["ss_item_v"]), INT32),
-                   Column(put(padded["ss_date"]), put(padded["ss_date_v"]), INT32),
-                   Decimal128Column(put(padded["price_hi"]), put(padded["price_lo"]),
-                                    None, decimal(38, 2)),
-                   *dims.values())
+        with seam(TRANSFER, "q3_columns_batch_upload"):
+            ss_item = Column(put(padded["ss_item"]), put(padded["ss_item_v"]), INT32)
+            ss_date = Column(put(padded["ss_date"]), put(padded["ss_date_v"]), INT32)
+            price = Decimal128Column(put(padded["price_hi"]), put(padded["price_lo"]),
+                                     None, decimal(38, 2))
+        # closed once the step's work is done on the card, as the JAX
+        # package's block_until_ready closes it
+        with seam(COLLECTIVE, "launch:q3_columns_step"):
+            out = step(ss_item, ss_date, price, *dims.values())
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         hi = out.hi.cpu().numpy()
         lo = out.lo.cpu().numpy().view(np.uint64)
         sums = [int(h) * (1 << 64) + int(x) for h, x in zip(hi, lo)]

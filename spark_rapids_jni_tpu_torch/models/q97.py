@@ -41,6 +41,7 @@ from spark_rapids_jni_tpu_torch.columnar.column import Column, next_pow2
 from spark_rapids_jni_tpu_torch.columnar.dtypes import INT8, INT64
 from spark_rapids_jni_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_size
 from spark_rapids_jni_tpu_torch.parallel.shuffle import (
+    ShuffleCrossing,
     all_to_all_shuffle,
     partition_of,
     quantized_rows,
@@ -152,14 +153,23 @@ def make_distributed_q97(mesh: DeviceMesh, capacity: int, with_validity: bool = 
     and the catalog's real rows, so that padding rows do not count).  It
     returns the global :class:`Q97Out`.  ``capacity`` bounds each
     per-destination bucket of the combined row stream; ``dropped > 0`` means
-    retry with a larger one."""
+    retry with a larger one.
+
+    The callable crosses ``seam(COLLECTIVE, "all_to_all_shuffle")`` once per
+    input signature, at its first call with it and before any launch, where
+    the JAX package's jit traces the step (:class:`ShuffleCrossing`)."""
+    crossing = ShuffleCrossing()
     if with_validity:
         def step(s_cust, s_item, c_cust, c_item, s_valid, c_valid):
+            crossing(s_cust, s_item, c_cust, c_item, s_valid, c_valid)
             return _sharded_q97(s_cust, s_item, c_cust, c_item, capacity, mesh,
                                 s_valid=s_valid, c_valid=c_valid)
+    else:
+        def step(s_cust, s_item, c_cust, c_item):
+            crossing(s_cust, s_item, c_cust, c_item)
+            return _sharded_q97(s_cust, s_item, c_cust, c_item, capacity, mesh)
 
-        return step
-    return functools.partial(_sharded_q97, capacity=capacity, mesh=mesh)
+    return step
 
 
 @functools.lru_cache(maxsize=64)
@@ -244,8 +254,16 @@ def make_distributed_q97_columns(mesh: DeviceMesh, capacity: int):
     """q97 over nullable Column keys: a callable that each rank calls with its
     data shard of four int32 Columns (store customer/item, catalog
     customer/item, each with or without validity) and two bool row-valid
-    tensors marking padding; it returns the global :class:`Q97Out`."""
+    tensors marking padding; it returns the global :class:`Q97Out`.
+
+    The callable crosses ``seam(COLLECTIVE, "all_to_all_shuffle")`` once per
+    input signature (which columns have validity counts), at its first call
+    with it and before any launch, where the JAX package's jit traces the
+    step (:class:`ShuffleCrossing`)."""
+    crossing = ShuffleCrossing()
+
     def step(s_cust, s_item, c_cust, c_item, s_rv, c_rv):
+        crossing(s_cust, s_item, c_cust, c_item, s_rv, c_rv)
         return _sharded_q97_columns(s_cust, s_item, c_cust, c_item, s_rv, c_rv, capacity,
                                     mesh)
 

@@ -13,10 +13,16 @@ comes from data-rank ``i``; unused slots are zeros.  Rows past a bucket's
 capacity are not sent and are counted in ``dropped``, the caller's signal to
 retry with a larger capacity.  The functions run on each rank, on its shard,
 with the mesh passed in.
+
+:func:`all_to_all_shuffle` crosses no seam itself: its callers cross
+``seam(COLLECTIVE, "all_to_all_shuffle")`` where the JAX package's jit traces
+it, the plan compiler once per built executor and the eager steps through a
+:class:`ShuffleCrossing`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -25,6 +31,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from spark_rapids_jni_tpu_torch import config
 from spark_rapids_jni_tpu_torch.columnar.column import next_pow2
+from spark_rapids_jni_tpu_torch.obs.seam import COLLECTIVE, seam
 from spark_rapids_jni_tpu_torch.ops.hashing import murmur3_raw_int64, partition_mix32
 from spark_rapids_jni_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_size
 
@@ -36,6 +43,43 @@ class ShuffleResult(NamedTuple):
     columns: Dict[str, torch.Tensor]  # [ndev * capacity, ...] received rows (padded)
     valid: torch.Tensor  # bool[ndev * capacity] slot occupancy
     dropped: torch.Tensor  # int32 scalar: local rows lost to capacity overflow
+
+
+def _signature(x):
+    """The part of a step input that a jit trace is keyed on: each tensor's
+    shape and dtype, and which of a column's buffers are given."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype
+    if dataclasses.is_dataclass(x):
+        return (type(x).__name__,) + tuple(_signature(getattr(x, f.name))
+                                           for f in dataclasses.fields(x))
+    return x
+
+
+class ShuffleCrossing:
+    """The ``all_to_all_shuffle`` crossing of one built eager step.
+
+    In the JAX package a step that shuffles is a jitted program, and its
+    ``all_to_all_shuffle`` crosses ``seam(COLLECTIVE, "all_to_all_shuffle")``
+    while jit traces it: once per built step and input signature (shapes,
+    dtypes, which optional inputs are given), never on later calls.  A step
+    calls this with its inputs first thing: the crossing is an empty
+    bracket, left before any launch, so a serializer's lock is never held
+    across the collective, and a fault injected there aborts the call before
+    any work, as a raise while tracing does.  A crossing that raises is not
+    recorded, so the next call crosses again, as a failed trace is traced
+    again.  Two first calls at once may both cross."""
+
+    def __init__(self):
+        self._seen = set()
+
+    def __call__(self, *inputs) -> None:
+        sig = tuple(_signature(x) for x in inputs)
+        if sig in self._seen:
+            return
+        with seam(COLLECTIVE, "all_to_all_shuffle"):
+            pass
+        self._seen.add(sig)
 
 
 def partition_of(keys: torch.Tensor, n_parts: int,

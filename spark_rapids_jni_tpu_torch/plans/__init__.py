@@ -12,15 +12,20 @@
 - :mod:`plans.window` -- sort ranks, sorted runs and the window functions
   of the order tier;
 - :mod:`plans.optimizer` -- the stats-driven rule rewriter, a copy of the
-  JAX package's.
+  JAX package's;
+- :mod:`plans.rcache` -- the governed multi-tier result cache, keyed on
+  (plan or handler, input content, bucket signature, table versions).
 """
 
 from spark_rapids_jni_tpu_torch.plans import ir
 from spark_rapids_jni_tpu_torch.plans.cache import CompiledPlan, PlanCache, plan_cache
 from spark_rapids_jni_tpu_torch.plans.compiler import (
     EXCHANGE_SOURCE,
+    RaggedProgram,
     cached_compile,
+    cached_ragged_compile,
     compile_plan,
+    compile_ragged,
     emit_exchange_partitions,
     emit_range_partitions,
     eval_post,
@@ -30,6 +35,7 @@ from spark_rapids_jni_tpu_torch.plans.compiler import (
     split_exchange_plan,
 )
 from spark_rapids_jni_tpu_torch.plans.optimizer import optimize_plan, rewrite_plan
+from spark_rapids_jni_tpu_torch.plans.rcache import ResultCache, result_cache
 from spark_rapids_jni_tpu_torch.plans.runtime import (
     combine_outputs,
     compiled_plan_for,
@@ -49,9 +55,14 @@ __all__ = [
     "ir",
     "CompiledPlan",
     "PlanCache",
+    "RaggedProgram",
+    "ResultCache",
     "plan_cache",
+    "result_cache",
     "cached_compile",
+    "cached_ragged_compile",
     "compile_plan",
+    "compile_ragged",
     "input_signature",
     "output_names",
     "EXCHANGE_SOURCE",
