@@ -63,7 +63,7 @@ __all__ = [
 #: host seconds of the shuffle's own work: routing and encoding each chunk,
 #: writing its bucket files (``append``), and what a caller times as reading
 #: and decoding a bucket back
-PHASES = PhaseTimes("route_encode", "write", "read_decode")
+PHASES = PhaseTimes("route_encode", "write", "read_decode", name="spill")
 
 
 # ------------------------------------------------------------- host codec --

@@ -54,6 +54,7 @@ from spark_rapids_jni_tpu_torch.mem.governor import (
 )
 from spark_rapids_jni_tpu_torch.obs import flight as _flight
 from spark_rapids_jni_tpu_torch.obs import seam as _seam
+from spark_rapids_jni_tpu_torch.obs.phases import trace_range
 
 __all__ = [
     "task_context",
@@ -134,13 +135,17 @@ def reservation(budget: BudgetedResource, nbytes: int):
     admission (including any blocked wait) as a range plus a budget-used
     counter, and a chaos rule on ``alloc``/``reserve:*`` injects an
     allocation failure INSIDE the retry protocol.
+
+    The acquire, with every blocked wait in the arbiter, is the span
+    ``srt.gov.admit`` while a profiler capture runs.
     """
     # lock-free hot-path gate, same flags seam() itself checks: with the
     # profiler and injector both inactive this adds zero locks/formatting
     # to the admission path (incl. the up-to-500 RetryOOM retry loop)
     if _seam._profiler_range is None and _seam._injector is None:
         t0 = 0
-        budget.acquire(nbytes)
+        with trace_range("srt.gov.admit"):
+            budget.acquire(nbytes)
         try:
             t0 = time.monotonic_ns()
             yield
@@ -168,7 +173,8 @@ def reservation(budget: BudgetedResource, nbytes: int):
     try:
         with _seam.seam(
                 _seam.ALLOC,
-                f"reserve:{'cpu' if budget.is_cpu else 'dev'}:{nbytes}"):
+                f"reserve:{'cpu' if budget.is_cpu else 'dev'}:{nbytes}"), \
+                trace_range("srt.gov.admit"):
             budget.acquire(nbytes)
             acquired = True
     except BaseException:
@@ -293,6 +299,9 @@ def run_with_split_retry(
     between splitting and a real OOM below, so every rank retries, splits
     and grows in step and none enters a collective alone.  Without one
     (the default) the driver is the JAX package's, line for line.
+
+    While a profiler capture runs, each ``split`` call, pre-split or
+    reactive, is the span ``srt.gov.split``.
     """
     gov = budget.gov
     results: List[Any] = []
@@ -302,7 +311,8 @@ def run_with_split_retry(
     for _ in range(max(0, min(initial_split_depth, max_split_depth))):
         nxt: List[tuple] = []
         for piece, depth, grows in work:
-            parts = list(split(piece))
+            with trace_range("srt.gov.split"):
+                parts = list(split(piece))
             if len(parts) <= 1:  # not splittable further: keep as-is
                 nxt.append((piece, depth, grows))
             else:
@@ -336,7 +346,8 @@ def run_with_split_retry(
             raise MaxSplitDepthExceeded(
                 f"split depth {depth} reached and batch still does not fit"
             ) from err
-        parts = list(split(piece))
+        with trace_range("srt.gov.split"):
+            parts = list(split(piece))
         if len(parts) <= 1:
             raise MaxSplitDepthExceeded(
                 "batch is not splittable further"
@@ -469,44 +480,47 @@ def _agreed_reservation(budget: BudgetedResource, nbytes: int, group):
     that outcome, and tries again.  A rank that holds bytes thus waits only
     for its peers' tries, never for a peer parked behind another task's
     bytes -- the cross-rank cycle that tasks sharing each rank's budget
-    would otherwise close (:func:`agreed_outcome`)."""
+    would otherwise close (:func:`agreed_outcome`).  The rounds, up to the
+    agreed admission, are the span ``srt.gov.admit`` while a profiler
+    capture runs."""
     gov = budget.gov
     seam_on = _seam._profiler_range is not None or _seam._injector is not None
     site = f"reserve:{'cpu' if budget.is_cpu else 'dev'}:{nbytes}"
-    while True:
-        got = [False]
+    with trace_range("srt.gov.admit"):
+        while True:
+            got = [False]
 
-        def try_once():
-            if seam_on:
-                with _seam.seam(_seam.ALLOC, site):
+            def try_once():
+                if seam_on:
+                    with _seam.seam(_seam.ALLOC, site):
+                        got[0] = budget.try_admit(nbytes)
+                else:
                     got[0] = budget.try_admit(nbytes)
-            else:
-                got[0] = budget.try_admit(nbytes)
 
-        code, err = _outcome(try_once)
-        if code == _OK and not got[0]:
-            code = _WAIT
-        try:
-            agreed = agreed_outcome(code, group)  # peers only try: a short wait
-        except BaseException:
+            code, err = _outcome(try_once)
+            if code == _OK and not got[0]:
+                code = _WAIT
+            try:
+                agreed = agreed_outcome(code, group)  # peers only try: a short wait
+            except BaseException:
+                if got[0]:
+                    budget.release(nbytes)  # a failed collective must not leak it
+                raise
+            if agreed == _OK:
+                break
             if got[0]:
-                budget.release(nbytes)  # a failed collective must not leak it
-            raise
-        if agreed == _OK:
-            break
-        if got[0]:
-            budget.release(nbytes)
-        if agreed != _WAIT:
-            _raise_agreed(agreed, code, err)
+                budget.release(nbytes)
+            if agreed != _WAIT:
+                _raise_agreed(agreed, code, err)
 
-        def wait_for_room():
-            budget.acquire(nbytes)
-            budget.release(nbytes)
+            def wait_for_room():
+                budget.acquire(nbytes)
+                budget.release(nbytes)
 
-        code, err = _outcome(wait_for_room)
-        agreed = agreed_outcome(code, group, gov)
-        if agreed != _OK:
-            _raise_agreed(agreed, code, err)
+            code, err = _outcome(wait_for_room)
+            agreed = agreed_outcome(code, group, gov)
+            if agreed != _OK:
+                _raise_agreed(agreed, code, err)
     t0 = time.monotonic_ns()
     try:
         yield

@@ -58,7 +58,7 @@ __all__ = [
 #: host seconds of a streamed run outside the shuffle: drawing the chunks,
 #: the routing hash and owner filter, each bucket's governed run (host
 #: clock around the device work) and the per-bucket oracle
-PHASES = PhaseTimes("generate", "hash", "bucket_run", "verify")
+PHASES = PhaseTimes("generate", "hash", "bucket_run", "verify", name="streaming")
 _SPANS: List[tuple] = []  # (start, end) CUDA events around each bucket's device run
 
 

@@ -64,7 +64,7 @@ from spark_rapids_jni_tpu_torch.utils.u64 import s64, uge, ule
 MAX_SAFE_DIGITS = 19
 MAX_HOLDING = ((1 << 64) - 1 - 9) // 10  # 1844674407370955160
 
-PHASES = PhaseTimes("bucket", "parse", "assemble")
+PHASES = PhaseTimes("bucket", "parse", "assemble", name="cast_string_to_float")
 
 _I32 = torch.int32
 _I64 = torch.int64

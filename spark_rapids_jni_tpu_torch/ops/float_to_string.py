@@ -76,7 +76,7 @@ _POW5_NP = np.array([5**k for k in range(24)], dtype=np.uint64)
 # pipeline phase timers (obs/phases.py): bucket = classification + class
 # split, ryu = digit computation (shortest search or strip), emit =
 # character emission + column assembly
-PHASES = PhaseTimes("bucket", "ryu", "emit")
+PHASES = PhaseTimes("bucket", "ryu", "emit", name="float_to_string")
 
 # value classes (class_buckets ids): specials render from a 5-row table,
 # simple integers take the strip loop, the residue pays full Ryu

@@ -65,7 +65,7 @@ MAX_BATCH_SIZE = (1 << 31) - 1
 # lanes (byte-lane construction / decode), gather (the fused permutation),
 # emit (batch split + ragged string pass).  Host arm: wall-clock host work;
 # device arm: dispatch time plus the host syncs of the phase.
-PHASES = PhaseTimes("plan", "lanes", "gather", "emit")
+PHASES = PhaseTimes("plan", "lanes", "gather", "emit", name="row_conversion")
 
 
 def _round_up(x: int, align: int) -> int:

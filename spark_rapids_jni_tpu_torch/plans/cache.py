@@ -10,6 +10,7 @@
   normalizes numpy scalars, so equal geometry never builds two unequal keys.
 - Hit, miss, trace, eviction and execute counters, with the cumulative
   build and execute seconds, are read through :meth:`PlanCache.stats`.
+  While a profiler capture runs, each build is the span ``srt.plan.build``.
 
 Entries are LRU-bounded by the ``plan_cache_size`` flag (``config.py``, 64
 by default), unless a cache is built with its own ``maxsize``.  The
@@ -26,6 +27,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 from spark_rapids_jni_tpu_torch import config
 from spark_rapids_jni_tpu_torch.obs import flight as _flight
+from spark_rapids_jni_tpu_torch.obs.phases import trace_range
 
 __all__ = ["CompiledPlan", "PlanCache", "plan_cache"]
 
@@ -95,7 +97,8 @@ class PlanCache:
             ev.wait()
         try:
             t0 = time.perf_counter()
-            entry = build()
+            with trace_range("srt.plan.build"):
+                entry = build()
             dt = time.perf_counter() - t0
         except BaseException:
             with self._lock:

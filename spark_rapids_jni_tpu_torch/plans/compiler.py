@@ -65,7 +65,7 @@ VALID_FIELD = "__valid__"
 #: the device: the upload and the exchange's child subtree (``emit``), the
 #: ranks, the key-order sort and the partition bounds (``rank_sort``), and
 #: the partitions' transfer to host numpy (``download``)
-RANGE_PHASES = PhaseTimes("emit", "rank_sort", "download")
+RANGE_PHASES = PhaseTimes("emit", "rank_sort", "download", name="range")
 
 
 def _dtype(name: str) -> torch.dtype:

@@ -34,7 +34,7 @@ from spark_rapids_jni_tpu_torch import config
 from spark_rapids_jni_tpu_torch import device as _device
 from spark_rapids_jni_tpu_torch.mem.governed import ShuffleCapacityExceeded
 from spark_rapids_jni_tpu_torch.obs import flight as _flight
-from spark_rapids_jni_tpu_torch.obs.phases import PhaseTimes
+from spark_rapids_jni_tpu_torch.obs.phases import PhaseTimes, trace_range
 from spark_rapids_jni_tpu_torch.obs.seam import COLLECTIVE, TRANSFER, seam
 from spark_rapids_jni_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -63,8 +63,10 @@ Tables = Dict[str, Dict[str, np.ndarray]]
 
 # execute_plan's two steps, on the host clock: ``upload`` is the pad, the
 # executor lookup and the inputs' transfer to the device; ``launch`` is the
-# run and the download of its outputs (which waits for the device)
-PHASES = PhaseTimes("upload", "launch")
+# run and the download of its outputs (which waits for the device).  Inside
+# ``srt.plan.upload`` the spans ``srt.plan.pad``, ``srt.plan.build`` (a cache
+# miss, plans/cache.py) and ``srt.plan.transfer`` bound its three parts
+PHASES = PhaseTimes("upload", "launch", name="plan")
 
 
 # --------------------------------------------------------------------------
@@ -288,9 +290,10 @@ def execute_plan(mesh, plan: ir.Plan, tables: Tables,
     this (:func:`run_governed_plan`, or the model runners' own drivers).
     """
     with PHASES.phase("upload"):
-        padded = pad_tables(plan, tables, _dp(mesh))
+        with trace_range("srt.plan.pad"):
+            padded = pad_tables(plan, tables, _dp(mesh))
         compiled = cached_compile(plan, mesh, padded, device)
-        with seam(TRANSFER, f"plan_upload:{plan.name}"):
+        with seam(TRANSFER, f"plan_upload:{plan.name}"), trace_range("srt.plan.transfer"):
             flat = plan_inputs(compiled, padded)
     t0 = time.perf_counter()
     with PHASES.phase("launch"), seam(COLLECTIVE, f"launch:plan:{ir.plan_signature(plan)}"):
@@ -336,15 +339,16 @@ def _upload_dims(plan: ir.Plan, tables: Tables, mesh, device: _device.DeviceLike
         return tables
     dev = plan_device(mesh, device)
     out = dict(tables)
-    for d in dims:
-        out[d.table] = {
-            # analyze: ignore[governed-allocation] - small replicated dim
-            # tables uploaded ONCE per governed bracket and shared by
-            # every retry/split piece; uploading inside the bracket would
-            # re-pay the transfer up to 2^max_split_depth times.  Their
-            # bytes ride the working-set margin.
-            k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in tables[d.table].items()}
+    with trace_range("srt.plan.transfer"):
+        for d in dims:
+            out[d.table] = {
+                # analyze: ignore[governed-allocation] - small replicated dim
+                # tables uploaded ONCE per governed bracket and shared by
+                # every retry/split piece; uploading inside the bracket would
+                # re-pay the transfer up to 2^max_split_depth times.  Their
+                # bytes ride the working-set margin.
+                k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in tables[d.table].items()}
     return out
 
 
