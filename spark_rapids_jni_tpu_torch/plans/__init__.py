@@ -44,11 +44,13 @@ from spark_rapids_jni_tpu_torch.plans.runtime import (
     pad_tables,
     plan_inputs,
     plan_retry_stats,
+    plan_upload_stats,
     plan_working_set_bytes,
     reset_plan_retry_stats,
     run_governed_plan,
     split_scan_tables,
     suggested_presplit_depth,
+    upload_inputs,
 )
 
 __all__ = [
@@ -85,4 +87,6 @@ __all__ = [
     "run_governed_plan",
     "split_scan_tables",
     "suggested_presplit_depth",
+    "plan_upload_stats",
+    "upload_inputs",
 ]

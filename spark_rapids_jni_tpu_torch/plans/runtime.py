@@ -1,4 +1,4 @@
-"""Plan execution: pad, look up the executor, upload, run, download, and the
+"""Plan execution: look up the executor, upload, run, download, and the
 governed bracket around it (PyTorch port of ``plans/runtime.py``).
 
 :func:`run_governed_plan` admits a whole plan as ONE working set through the
@@ -8,16 +8,27 @@ addition), and one flight-recorder task brackets the plan.  Under a mesh the
 admission outcome is agreed across the data axis, so every rank retries and
 splits together.
 
-Padding discipline: scan tables are padded on the host, in numpy, to the
-dp-aligned pow2-quantized length (``parallel.shuffle.quantized_rows`` -- the
-bucket lattice the plan cache keys on) with an appended row-valid array,
-False on pad rows, that the executor ANDs into the pipeline mask -- more
-padding never changes results, and the padded signature is the JAX
-package's.  Under a mesh every rank takes the same host tables and uploads
-its data shard of each scan table: rows ``[d*m/dp, (d+1)*m/dp)`` of the
-padded length ``m`` at data index ``d`` (the block ``P(DATA_AXIS)`` gives
-JAX device ``d``); ranks along the model axis take the same block, and dims
-are uploaded whole.
+Upload discipline: the executor takes each scan table at the dp-aligned
+pow2-quantized length (``parallel.shuffle.quantized_rows`` -- the bucket
+lattice the plan cache keys on) with an appended row-valid array, False on
+pad rows, that it ANDs into the pipeline mask -- more padding never changes
+results, and the padded signature is the JAX package's (:func:`pad_tables`
+and :func:`plan_inputs` define that layout on the host).  Under a mesh every
+rank takes the same host tables and holds its data shard of each scan
+table: rows ``[d*m/dp, (d+1)*m/dp)`` of the padded length ``m`` at data
+index ``d`` (the block ``P(DATA_AXIS)`` gives JAX device ``d``); ranks along
+the model axis take the same block, and dims are uploaded whole.
+
+:func:`upload_inputs` builds that layout on the executor's device without
+padding on the host: each block is allocated at its padded length, its pad
+tail zeroed and its row-valid array written there, and only the block's
+real rows cross from the host.  To a card they cross once, unpadded,
+through a pinned staging ring of the calling thread (``STAGING_CHUNKS``
+chunks of ``STAGING_CHUNK_BYTES``): a chunk is filled from the caller's
+array while the card reads the previous one, and refilled only after the
+event of its last copy.  The copies, and the executor after them, run on
+the thread's current stream.  To the CPU they are plain copies.  Nothing is
+kept between uploads but the ring: every call moves its tables' bytes.
 """
 
 from __future__ import annotations
@@ -48,7 +59,6 @@ from spark_rapids_jni_tpu_torch.plans.cache import CompiledPlan, plan_cache
 from spark_rapids_jni_tpu_torch.plans.compiler import (
     VALID_FIELD,
     _arg_layout,
-    cached_compile,
     cached_executor,
     dtype_name,
     plan_device,
@@ -56,17 +66,25 @@ from spark_rapids_jni_tpu_torch.plans.compiler import (
 
 __all__ = ["pad_tables", "plan_working_set_bytes", "execute_plan", "run_governed_plan",
            "split_scan_tables", "combine_outputs", "input_signature_raw",
-           "compiled_plan_for", "plan_inputs", "plan_retry_stats",
-           "suggested_presplit_depth", "reset_plan_retry_stats", "PHASES"]
+           "compiled_plan_for", "plan_inputs", "upload_inputs", "plan_retry_stats",
+           "suggested_presplit_depth", "reset_plan_retry_stats", "plan_upload_stats",
+           "reset_plan_upload_stats", "PHASES", "STAGING_CHUNK_BYTES", "STAGING_CHUNKS"]
 
 Tables = Dict[str, Dict[str, np.ndarray]]
 
-# execute_plan's two steps, on the host clock: ``upload`` is the pad, the
-# executor lookup and the inputs' transfer to the device; ``launch`` is the
-# run and the download of its outputs (which waits for the device).  Inside
-# ``srt.plan.upload`` the spans ``srt.plan.pad``, ``srt.plan.build`` (a cache
-# miss, plans/cache.py) and ``srt.plan.transfer`` bound its three parts
+# execute_plan's two steps, on the host clock: ``upload`` is the executor
+# lookup, the padded layout on the device and the inputs' transfer to it;
+# ``launch`` is the run and the download of its outputs (which waits for the
+# device).  Inside ``srt.plan.upload`` the spans ``srt.plan.build`` (a cache
+# miss, plans/cache.py), ``srt.plan.pad`` (the blocks' allocation, pad tails
+# and row-valid arrays) and ``srt.plan.transfer`` (the real rows' copies)
+# bound its three parts
 PHASES = PhaseTimes("upload", "launch", name="plan")
+
+#: each thread's pinned staging ring for uploads to a card: STAGING_CHUNKS
+#: chunks of STAGING_CHUNK_BYTES, allocated on its first such upload
+STAGING_CHUNK_BYTES = 64 << 20
+STAGING_CHUNKS = 2
 
 
 # --------------------------------------------------------------------------
@@ -266,14 +284,193 @@ def plan_inputs(compiled: CompiledPlan, padded: Tables) -> List[torch.Tensor]:
     return flat
 
 
+# --------------------------------------------------------------------------
+# the upload: the padded layout built on the device, real rows staged
+#
+# Counters of every upload in the process, the flight recorder's
+# ``plan_upload`` telemetry source: bytes staged through a pinned ring,
+# bytes copied without one (to a CPU target, or a dim tensor moved whole),
+# pad bytes written on the device (pad tails and row-valid arrays), and the
+# waits for a ring chunk's last copy before it could be refilled.
+# --------------------------------------------------------------------------
+
+_UPLOAD_LOCK = threading.Lock()
+_UPLOAD_KEYS = ("pinned_bytes", "unpinned_bytes", "pad_bytes", "chunk_waits")
+_UPLOAD_STATS = dict.fromkeys(_UPLOAD_KEYS, 0)  # guarded-by: _UPLOAD_LOCK
+
+
+class _ThreadRings(threading.local):
+    def __init__(self):
+        self.by_size: Dict[int, "_StagingRing"] = {}  # chunk bytes -> this thread's ring
+
+
+_RINGS = _ThreadRings()
+
+
+def plan_upload_stats() -> dict:
+    """The upload counters (a copy), with ``pinned_share`` of the bytes that
+    crossed from the host (None before any)."""
+    with _UPLOAD_LOCK:
+        out = dict(_UPLOAD_STATS)
+    moved = out["pinned_bytes"] + out["unpinned_bytes"]
+    out["pinned_share"] = out["pinned_bytes"] / moved if moved else None
+    return out
+
+
+def reset_plan_upload_stats() -> None:
+    with _UPLOAD_LOCK:
+        _UPLOAD_STATS.update(dict.fromkeys(_UPLOAD_KEYS, 0))
+
+
+_flight.register_telemetry_source("plan_upload", plan_upload_stats)
+
+
+class _StagingRing:
+    """One thread's pinned host chunks (equal uint8 buffers), and for each
+    the event of the last device copy that read it."""
+
+    def __init__(self, chunks: List[torch.Tensor]):
+        self.chunks = chunks
+        self.events: List = [None] * len(chunks)
+        self.turn = 0
+
+    def copy(self, dst: torch.Tensor, src: torch.Tensor, stream) -> int:
+        """``dst`` (1-D, on the card) from ``src`` (1-D, host, any stride),
+        chunk by chunk; returns the waits for a chunk's last copy."""
+        waits = 0
+        step = self.chunks[0].numel() // src.element_size()
+        for at in range(0, src.numel(), step):
+            k = self.turn
+            self.turn = (k + 1) % len(self.chunks)
+            done = self.events[k]
+            if done is not None and not done.query():
+                waits += 1
+                done.synchronize()
+            part = src[at:at + step]
+            stage = self.chunks[k][:part.numel() * part.element_size()].view(part.dtype)
+            stage.copy_(part)  # on the host, without the interpreter lock
+            dst[at:at + step].copy_(stage, non_blocking=True)
+            done = self.events[k] = torch.cuda.Event()
+            done.record(stream)
+        return waits
+
+
+def _ring(chunk_bytes: int) -> _StagingRing:
+    ring = _RINGS.by_size.get(chunk_bytes)
+    if ring is None:
+        ring = _RINGS.by_size[chunk_bytes] = _StagingRing(
+            [torch.empty(chunk_bytes, dtype=torch.uint8, pin_memory=True)
+             for _ in range(STAGING_CHUNKS)])
+    return ring
+
+
+def _host_tensor(v) -> torch.Tensor:
+    """A caller's host column as a tensor over the same memory (a copy only
+    for a numpy array with a negative stride, which torch cannot view)."""
+    a = np.asarray(v)
+    if any(st < 0 for st in a.strides):
+        a = np.ascontiguousarray(a)
+    return torch.from_numpy(a)
+
+
+def _scan_rows(table: str, fields) -> int:
+    n = len(next(iter(fields.values())))
+    for k, v in fields.items():
+        if len(v) != n:
+            raise ValueError(
+                f"ragged scan table {table!r}: field {k!r} has {len(v)} rows, expected {n}")
+    return n
+
+
+def upload_inputs(compiled: CompiledPlan, tables: Tables, *,
+                  chunk_bytes: int = STAGING_CHUNK_BYTES) -> List[torch.Tensor]:
+    """The flat input tensors of ``compiled`` on its device, from RAW (unpadded)
+    ``tables``: element for element and dtype for dtype
+    ``plan_inputs(compiled, pad_tables(plan, tables, dp))``, with no padded
+    host copy.  Each scan field's block of this rank's data index is
+    allocated on the device at its padded length and its pad tail zeroed
+    there; its row-valid array is written there; only the block's real rows
+    are copied in.  Dims are copied whole, and a tensor already on the
+    executor's device passes through untouched.  Copies to a card go
+    through the calling thread's pinned ring of ``chunk_bytes`` chunks on
+    its current stream; copies to the CPU are plain.  The allocation and
+    fills are the span ``srt.plan.pad``, the copies ``srt.plan.transfer``
+    inside the ``TRANSFER`` seam ``plan_upload:<name>``."""
+    plan = compiled.plan
+    scans = {s.table for s in ir.scan_tables(plan)}
+    dev = compiled.device
+    dp = _dp(compiled.mesh)
+    d = 0 if compiled.mesh is None else axis_index(compiled.mesh, DATA_AXIS)
+    flat, copies, passing = [], [], []
+    pad_bytes = 0
+    with trace_range("srt.plan.pad"):
+        blocks = {}  # scan table -> (block rows, first real row, real rows)
+        for name in compiled.arg_names:
+            table, field = name.split(".", 1)
+            fields = tables[table]
+            if table not in scans:
+                v = fields[field]
+                if isinstance(v, torch.Tensor):
+                    passing.append(len(flat))  # moved, if elsewhere, with the copies
+                    flat.append(v)
+                    continue
+                src = _host_tensor(v)
+                out = torch.empty(src.shape, dtype=src.dtype, device=dev)
+                copies.append((out, src))
+                flat.append(out)
+                continue
+            if table not in blocks:
+                n = _scan_rows(table, fields)
+                b = quantized_rows(n, dp) // dp
+                lo = min(d * b, n)
+                blocks[table] = (b, lo, min(lo + b, n) - lo)
+            b, lo, real = blocks[table]
+            if field == VALID_FIELD:
+                out = torch.empty(b, dtype=torch.bool, device=dev)
+                out[:real].fill_(True)
+                out[real:].fill_(False)
+                pad_bytes += b
+            else:
+                src = _host_tensor(fields[field])
+                out = torch.empty(b, dtype=src.dtype, device=dev)
+                out[real:].zero_()
+                pad_bytes += (b - real) * out.element_size()
+                copies.append((out[:real], src[lo:lo + real]))
+            flat.append(out)
+    pinned = unpinned = waits = 0
+    with seam(TRANSFER, f"plan_upload:{plan.name}"), trace_range("srt.plan.transfer"):
+        for i in passing:
+            v = flat[i]
+            flat[i] = v.to(dev)
+            if flat[i] is not v:
+                unpinned += v.numel() * v.element_size()
+        ring = stream = None
+        for dst, src in copies:
+            nbytes = dst.numel() * dst.element_size()
+            if dev.type == "cuda":
+                if ring is None:
+                    ring, stream = _ring(chunk_bytes), torch.cuda.current_stream(dev)
+                waits += ring.copy(dst, src, stream)
+                pinned += nbytes
+            else:
+                dst.copy_(src)
+                unpinned += nbytes
+    with _UPLOAD_LOCK:
+        _UPLOAD_STATS["pinned_bytes"] += pinned
+        _UPLOAD_STATS["unpinned_bytes"] += unpinned
+        _UPLOAD_STATS["pad_bytes"] += pad_bytes
+        _UPLOAD_STATS["chunk_waits"] += waits
+    return flat
+
+
 def _host(v) -> np.ndarray:
     return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
 def execute_plan(mesh, plan: ir.Plan, tables: Tables,
                  device: _device.DeviceLike = None) -> Dict[str, np.ndarray]:
-    """One execution: pad, look up the executor (cached), upload, run,
-    download.  A local plan (``mesh`` None) runs on ``device``, the card
+    """One execution: look up the executor (cached), upload
+    (:func:`upload_inputs`), run, download.  A local plan (``mesh`` None) runs on ``device``, the card
     unless the caller asks for the CPU; under a mesh every rank calls this
     with the same host tables and runs on the mesh's device.
 
@@ -290,11 +487,8 @@ def execute_plan(mesh, plan: ir.Plan, tables: Tables,
     this (:func:`run_governed_plan`, or the model runners' own drivers).
     """
     with PHASES.phase("upload"):
-        with trace_range("srt.plan.pad"):
-            padded = pad_tables(plan, tables, _dp(mesh))
-        compiled = cached_compile(plan, mesh, padded, device)
-        with seam(TRANSFER, f"plan_upload:{plan.name}"), trace_range("srt.plan.transfer"):
-            flat = plan_inputs(compiled, padded)
+        compiled = compiled_plan_for(plan, mesh, tables, device)
+        flat = upload_inputs(compiled, tables)
     t0 = time.perf_counter()
     with PHASES.phase("launch"), seam(COLLECTIVE, f"launch:plan:{ir.plan_signature(plan)}"):
         outputs = {name: _host(v) for name, v in zip(compiled.out_names, compiled.fn(*flat))}
@@ -332,8 +526,8 @@ def combine_outputs(results: Sequence[Dict[str, np.ndarray]]) -> Dict:
 
 def _upload_dims(plan: ir.Plan, tables: Tables, mesh, device: _device.DeviceLike) -> Tables:
     """Upload the plan's dim tables to its device ONCE per governed bracket:
-    the tensors pass through :func:`pad_tables` and :func:`plan_inputs`
-    untouched, so retry and split pieces never re-pay the transfer."""
+    the tensors pass through :func:`upload_inputs` untouched, so retry and
+    split pieces never re-pay the transfer."""
     dims = ir.dim_tables(plan)
     if not dims:
         return tables

@@ -4,7 +4,8 @@ Governed q3 and q97 run on a task thread under the capture a traced
 benchmark run makes (CPU activity, input shapes, ``profile_all_threads``),
 made here.  The spans ``srt.<layer>.<step>`` must appear on the task thread
 with their names and nesting; the governance spans under a budget small
-enough to split; each copy of a plan's inputs inside a transfer span; and
+enough to split; each copy of a plan's inputs inside a transfer span, and
+each pad fill inside a pad span; and
 with no capture running, no range is opened at all while the host-clock
 phase sums keep their keys and their sums.
 """
@@ -71,15 +72,19 @@ def _on_task_thread(fn):
 
 def _traced(fn):
     """(fn's result on a task thread under the capture, the task thread's
-    spans and ``aten::to`` events, the task range)."""
+    spans and its ``aten::to``, ``aten::copy_`` and ``aten::fill_`` events,
+    the task range)."""
     with _capture() as prof:
         result = _on_task_thread(fn)
     evs = [Span(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(), e.start_thread_id())
            for e in prof.profiler.kineto_results.events()]
     task = next(e for e in evs if e.name == TASK)
     mine = [e for e in evs if task.holds(e) and e is not task
-            and (e.name.startswith("srt.") or e.name == "aten::to")]
+            and (e.name.startswith("srt.") or e.name in _OPS)]
     return result, mine, task
+
+
+_OPS = ("aten::to", "aten::copy_", "aten::fill_")
 
 
 def _named(spans, name):
@@ -133,7 +138,7 @@ def _run_q97(mesh, store, catalog, limit):
 
 def test_plan_spans_nest_on_the_task_thread():
     """A governed q3 whose executor is built in the capture: admission, the
-    dims' transfer, then ``srt.plan.upload`` holding the pad, the build and
+    dims' transfer, then ``srt.plan.upload`` holding the build, the pad and
     the scan tables' transfer in that order, then ``srt.plan.launch``; the
     answer is the untraced run's."""
     data = _q3_data()
@@ -154,7 +159,7 @@ def test_plan_spans_nest_on_the_task_thread():
     assert not upload.holds(dims)
     for inner in (pad, build, inputs):
         assert upload.holds(inner)
-    assert pad.end <= build.start and build.end <= inputs.start
+    assert build.end <= pad.start and pad.end <= inputs.start
 
 
 @pytest.mark.parametrize("query", ["q3", "q97"])
@@ -187,9 +192,11 @@ def test_governance_spans_under_a_splitting_budget(query):
 
 @pytest.mark.parametrize("query", ["q3", "q97"])
 def test_upload_copies_lie_in_transfer_spans(query):
-    """Every ``aten::to`` that uploads a plan's inputs lies inside a
-    ``srt.plan.transfer`` span on the same clock: each one inside
-    ``srt.plan.upload`` and outside a build, and the dims' before admission."""
+    """Every ``aten::to`` or ``aten::copy_`` that uploads a plan's inputs
+    lies inside a ``srt.plan.transfer`` span on the same clock: each one
+    inside ``srt.plan.upload`` and outside a build, and the dims' before
+    admission.  Every ``aten::fill_`` of the upload (the pad tails and the
+    row-valid arrays) lies inside ``srt.plan.pad``."""
     if query == "q3":
         data = _q3_data()
         _, spans, _ = _traced(lambda: _run_q3(data, 1 << 34))
@@ -201,14 +208,21 @@ def test_upload_copies_lie_in_transfer_spans(query):
     builds = _named(spans, "srt.plan.build")
     [upload] = _named(spans, "srt.plan.upload")
     first_admit = min(s.start for s in _named(spans, "srt.gov.admit"))
-    copies = [c for c in _named(spans, "aten::to")
+    copies = [c for c in _named(spans, "aten::to") + _named(spans, "aten::copy_")
               if (upload.holds(c) or c.end <= first_admit)
               and not any(b.holds(c) for b in builds)]
-    # q3: five fact columns and their row-valid array, four dim columns
-    # uploaded before admission and passed through; q97: four keys, two valid
-    assert len(copies) >= (5 + 1 + 4 + 4 if query == "q3" else 4 + 2)
+    # q3: five fact columns, four dim columns uploaded before admission and
+    # passed through; q97: four keys (row-valid arrays are written in place)
+    assert len(copies) >= (5 + 4 + 4 if query == "q3" else 4)
     for c in copies:
         assert any(t.holds(c) for t in transfers), c
+    pads = _named(spans, "srt.plan.pad")
+    fills = [f for f in _named(spans, "aten::fill_")
+             if upload.holds(f) and not any(b.holds(f) for b in builds)]
+    # the row-valid arrays' fills at least: q3 scans one table, q97 two
+    assert len(fills) >= (1 if query == "q3" else 2)
+    for f in fills:
+        assert any(p.holds(f) for p in pads), f
 
 
 def _fail_if_entered(monkeypatch):
