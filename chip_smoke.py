@@ -8,8 +8,9 @@ Run from the root of the repository on a machine with an NVIDIA H100:
 It exits non-zero, and prints no result, where there is no CUDA device or no
 port package beside it.  Otherwise it:
 
-1. builds ``csrc/hash_kernels.cu``, all five kernels, for sm_90a (nvcc,
-   loaded with ctypes);
+1. builds ``csrc/hash_kernels.cu`` (all five hash kernels) and
+   ``csrc/agg_kernels.cu`` (SegmentAgg's segment sum) into one library for
+   sm_90a (nvcc, loaded with ctypes);
 2. drives the main path at full size with the launch counters at 0: the
    flagship ``local_query_step`` on 2**26 rows (Spark's runtime bloom-filter
    defaults, 8388608 bits and 6 hashes), then ``murmur_hash32`` and
@@ -67,24 +68,31 @@ port package beside it.  Otherwise it:
    (store_sales 33,554,400 rows), ``q3_local`` on ``generate_q3_data(
    sf=559.24)`` (67,108,800 rows, 83,886 groups), q3's decimal-columns step
    on the same facts as device Columns, and ``run_q97_piece`` on the
-   distributed phase's SF10 q97 tables; only the q97 plan may launch a
-   kernel (``mm_hash_long`` once, its Exchange's placement); a second call
+   distributed phase's SF10 q97 tables; each part must launch exactly its
+   kernels: ``srt_segment_sum`` once per SegmentAgg aggregate (q5 18, q3 2,
+   the decimal step 4) and the q97 plan ``mm_hash_long`` once (its
+   Exchange's placement); a second call
    of each part must be a cache hit with the same answer; holds q5 against
    ``q5_local_unfused`` and the rollup of ``q5_host_channel_partials``, q3,
    ``q3_local_unfused`` and the decimal step against a numpy oracle, the q97
    plan against the distributed phase's oracle and ``make_distributed_q97``,
    and ``mm_hash_long`` against its plain version at the q97 plan's shape;
    times each call host to host with its pad and upload share, each
-   executor and step on resident inputs, and one SegmentAgg alone, and
-   prints a ``plans`` line;
+   executor and step on resident inputs, and SegmentAgg's segment sum
+   alone (the ``srt_segment_sum`` kernel bit-equal to ``index_add_`` through
+   a spare bucket, both timed, beside the kernel's bound, at q5's, q3's and
+   the benchmark's q3 task's shapes, and q5's 6 buckets also through the
+   kernel's global-atomic branch; these timing launches are counted apart
+   from the path's), and prints a ``plans`` line;
 11. drives the governed path with the launch counters at 0 again, on the
    same mesh: ``run_distributed_q97`` on the SF10 tables,
    ``run_distributed_q5`` on the plans phase's q5 data, and
    ``run_distributed_q3`` and ``run_distributed_q3_columns`` on its q3 data,
    each twice under the default budget (the card's memory) and twice under
-   a budget of half its working set; the default runs launch
-   ``mm_hash_long`` once (q97) or nothing (q5, q3), the tight runs must
-   split (q97 launching it once per key-space piece); every answer must
+   a budget of half its working set; each call launches exactly its
+   kernels (GOV_LAUNCHES): ``mm_hash_long`` once per q97 key-space piece,
+   ``srt_segment_sum`` once per SegmentAgg aggregate per piece (q5 18, q3 2,
+   the decimal step 4), and the tight runs must split in two; every answer must
    equal the ungoverned run's, every reservation be released and no thread
    be left blocked; holds
    ``mm_hash_long`` against its plain version at a split piece's shape, runs
@@ -180,9 +188,9 @@ port package beside it.  Otherwise it:
    1000000 --buckets 32`` on the card: q5 and q97's facts generated in
    chunks of 1,000,000 rows, grace-hashed to disk as JCUDF rows in 32
    buckets, each bucket a governed run on a (1, 1) mesh over a one-rank
-   NCCL group (q97's Exchange launching ``mm_hash_long`` once a bucket, and
-   no other kernel), q3 in memory; holds q97's counts to the JAX package's
-   SF10 answers (27967534, 27967430, 21658 over 56,000,000 rows), q5 to 40
+   NCCL group (q97's Exchange launching ``mm_hash_long`` once a bucket, q5's
+   and q3's plans ``srt_segment_sum``, and no other kernel), q3 in memory;
+   holds q97's counts to the JAX package's SF10 answers (27967534, 27967430, 21658 over 56,000,000 rows), q5 to 40
    rows, every query to its oracle and every spill file to its removal,
    ``mm_hash_long`` against its plain version at a bucket's shape, and
    prints a ``config5`` line (each query's wall time and rate, the host
@@ -282,13 +290,16 @@ port package beside it.  Otherwise it:
    others' (timings aside), q97's counts in memory the distributed phase's
    numpy oracle of the same SF10 tables and streamed the JAX package's
    config 5 answer, q5 40 rows, the monte-carlo ok with 6 data-axis groups;
-   a rank that fails, or runs past 300 s, fails the run.  The ranks write their ``mm_hash_long``
-   launches to files the parent adds up.  Prints ``multihost_launches`` and
+   a rank that fails, or runs past 300 s, fails the run; each rank on a card
+   launches ``mm_hash_long`` and ``srt_segment_sum`` and no other kernel.
+   The ranks write their launches to files the parent adds up.  Prints ``multihost_launches`` and
    the ``multihost`` line (world, spawn-to-group seconds, each query's wall
    and Mrows/s per rank, the monte-carlo's stats);
    then the phases' seconds, the card's name and power limit, the
-   ``kernels`` line (all seven kernels, their launches over the seventeen
-   paths) and, last, the ``ok`` line.
+   ``kernels`` line (all seven hash kernels and their launches over the
+   seventeen paths, and ``srt_segment_sum``'s launches on each path, its
+   timing loops left out)
+   and, last, the ``ok`` line.
 
 The governed phase also holds every call's device peak over its reservation
 to the default budget's headroom factor (``mem.governed.PEAK_OVER_RESERVATION``),
@@ -424,7 +435,8 @@ def build():
 
     t0 = time.perf_counter()
     _build.library()
-    print(json.dumps({"build": {"source": SOURCE, "seconds": time.perf_counter() - t0,
+    print(json.dumps({"build": {"sources": [p.name for p in _build.SOURCES],
+                                "seconds": time.perf_counter() - t0,
                                 "library": _build.library_path().name}}))
     if _build.build_log:
         print(_build.build_log.strip())
@@ -1485,9 +1497,9 @@ Q3_SF, Q3_SEED = 559.24, 3  # store_sales 67,108,800 rows (2**26); 83,886 groups
 PLAN_REPS = 2  # host-to-host calls timed per part, after the path's first call
 # part -> the kernel launches it must make, and no others
 PLAN_LAUNCHES = {
-    "q5": {},
-    "q3": {},
-    "q3_columns": {},
+    "q5": {"segment_sum": 18},  # six SegmentAgg sinks of three aggregates each
+    "q3": {"segment_sum": 2},  # one sink: sums and counts
+    "q3_columns": {"segment_sum": 4},  # three limb sums and the counts
     "q97_plan": {"mm_hash_long": 1},  # the Exchange's partition_of
 }
 
@@ -1732,20 +1744,56 @@ def _pad_upload(compiled, tables) -> dict:
             "upload_bytes": sum(x.numel() * x.element_size() for x in flat)}, flat
 
 
-def _segment_phases(b):
-    """One SegmentAgg's index_add_ alone, on the ids and values the plans
-    give it: q5's store sales prices into their 6 dim buckets (the masked
-    rows, most of them, dropped), the same rows spread over 65536 buckets,
-    and q3's prices into its groups (83,886 at full size; masked rows dropped)."""
+# The benchmark's q3 task (nds_bench/configs/tpcds_q3_sf3000.json and
+# traffic/q3_tasks.json): its scan rows padded to the next power of two, its
+# (year, brand) grid, and the share of rows that pass its filter (one item in
+# 1,000, one month in 12, both keys not null in 0.96 x 0.96 of rows).
+Q3_TASK_ROWS, Q3_TASK_PADDED, Q3_TASK_GROUPS = 86_767_016, 1 << 27, 201_000
+Q3_TASK_KEPT_SHARE = 0.96 * 0.96 / 12_000
+SHARED_GRID_BYTES = 48 * 1024  # srt_segment_sum's grids up to this size add in shared memory
+
+
+def _segment_case(ids, vals, num_segments, rates) -> dict:
+    """``segment_sum``'s kernel against its plain version (``index_add_``
+    through the spare bucket) on the same card tensors: bit-equal for
+    integer values, both timed, beside the kernel's bound (each id read once,
+    each kept row's value once, the grid written once)."""
+    from spark_rapids_jni_tpu_torch.ops import agg_cuda
+
+    got = agg_cuda.segment_sum(vals, ids, num_segments)
+    want = agg_cuda.segment_sum_torch(vals, ids, num_segments)
+    _require_equal(f"segment_sum over {num_segments} segments", got, want)
+    kept = int(((ids >= 0) & (ids < num_segments)).sum())
+    grid = num_segments * vals.element_size()
+    nbytes = ids.numel() * ids.element_size() + kept * vals.element_size() + grid
+    return {"n": ids.numel(), "num_segments": num_segments, "kept": kept,
+            "ids": str(ids.dtype), "values": str(vals.dtype),
+            "path": "shared" if grid <= SHARED_GRID_BYTES else "global", "equal": True,
+            "kernel_ms": _time_ms(lambda: agg_cuda.segment_sum(vals, ids, num_segments)),
+            "plain_ms": _time_ms(lambda: agg_cuda.segment_sum_torch(vals, ids, num_segments)),
+            "bytes": nbytes, **_bound(nbytes, 0, rates)}
+
+
+def _segment_phases(device, q5, q3) -> dict:
+    """SegmentAgg's segment sum alone, kernel against plain version, on the
+    ids and values the plans give it: q5's store sales prices into their 6
+    dim buckets (the masked rows, most of them, dropped), the same rows
+    spread over 65,536 buckets, q3's prices and counts into its groups
+    (83,886; masked rows dropped), and the benchmark's q3 task: 134,217,728
+    padded rows into 201,000 groups, about 6,600 of them kept.  q5's 6
+    buckets are also timed through the kernel's global-atomic branch: the
+    same ids into the smallest grid past the shared-memory budget, whose
+    head must equal the 6 buckets.  ``launches`` counts this phase's own."""
     from spark_rapids_jni_tpu_torch.models.q3 import _geometry, _group
     from spark_rapids_jni_tpu_torch.models.q5 import _window_member
-    from spark_rapids_jni_tpu_torch.plans.compiler import segment_sum
+    from spark_rapids_jni_tpu_torch.ops import agg_cuda, hash_cuda
 
-    dev, q5, q3 = b["device"], b["q5"], b["q3"]
+    rates = _card_rates()
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    launched = hash_cuda.launches["segment_sum"]
     ch = q5.channels["store"]
     n_dim = len(ch.dim_sk)
     sk, price = t(ch.sales_sk), t(ch.sales_price)
@@ -1754,25 +1802,62 @@ def _segment_phases(b):
                            t(q5.date_days), q5.sales_date_lo, q5.sales_date_hi))
     ids = torch.where(ok, sk - 1, -1)
     vals = torch.where(ok, price, 0)
-    spread = torch.arange(sk.numel(), device=dev, dtype=torch.int32) % 65536
+    spread = torch.arange(sk.numel(), device=device, dtype=torch.int32) % 65536
+    cases = {"q5_store_sales_6_buckets": _segment_case(ids, vals, n_dim, rates),
+             "same_rows_65536_buckets": _segment_case(spread, vals, 65536, rates)}
+    wide = SHARED_GRID_BYTES // vals.element_size() + 1
+    _require_equal(f"segment_sum over {n_dim} of {wide} segments",
+                   agg_cuda.segment_sum(vals, ids, wide)[:n_dim],
+                   agg_cuda.segment_sum(vals, ids, n_dim))
+    cases["q5_store_sales_6_buckets"].update(
+        global_num_segments=wide,
+        global_ms=_time_ms(lambda: agg_cuda.segment_sum(vals, ids, wide)))
+    del sk, price, ok, ids, vals, spread
 
     geo = _geometry(q3)
-    item, date = b["q3_cols"][0], b["q3_cols"][1]
-    brand, manufact, year, moy = b["q3_cols"][3:]
-    i_idx = torch.clamp(item.data - 1, 0, brand.shape[0] - 1)
-    d_idx = torch.clamp(date.data - geo["date_sk0"], 0, year.shape[0] - 1)
-    q3_ok = (item.is_valid() & date.is_valid() & (manufact[i_idx] == geo["manufact_id"])
-             & (moy[d_idx] == geo["moy"]))
+    brand, manufact = t(q3.item_brand_id), t(q3.item_manufact_id)
+    year, moy = t(q3.date_year), t(q3.date_moy)
+    item, date = t(q3.ss_item_sk), t(q3.ss_sold_date_sk)
+    i_idx = torch.clamp(item - 1, 0, brand.shape[0] - 1)
+    d_idx = torch.clamp(date - geo["date_sk0"], 0, year.shape[0] - 1)
+    q3_ok = (t(q3.ss_item_sk_valid) & t(q3.ss_sold_date_sk_valid)
+             & (manufact[i_idx] == geo["manufact_id"]) & (moy[d_idx] == geo["moy"]))
     groups = geo["n_years"] * geo["n_brands"]
     q3_ids = torch.where(q3_ok, _group(i_idx, d_idx, brand, year, n_brands=geo["n_brands"],
                                        year0=geo["year0"], n_years=geo["n_years"]), -1)
-    q3_vals = torch.where(q3_ok, t(q3.ss_ext_sales_price), 0)
-    return {"rows": [sk.numel(), q3_ids.numel()],
-            "q5_store_sales_kept": int(ok.sum()), "q3_kept": int(q3_ok.sum()),
-            "q5_store_sales_6_buckets_ms": _time_ms(lambda: segment_sum(vals, ids, n_dim)),
-            "same_rows_65536_buckets_ms": _time_ms(lambda: segment_sum(vals, spread, 65536)),
-            "q3_groups": groups,
-            "q3_groups_ms": _time_ms(lambda: segment_sum(q3_vals, q3_ids, groups))}
+    cases["q3_groups_sums"] = _segment_case(
+        q3_ids, torch.where(q3_ok, t(q3.ss_ext_sales_price), 0), groups, rates)
+    cases["q3_groups_counts"] = _segment_case(q3_ids, q3_ok.to(torch.int32), groups, rates)
+    del item, date, i_idx, d_idx, q3_ok, q3_ids
+
+    g = torch.Generator(device=device)
+    g.manual_seed(Q3_SEED)
+    real = torch.arange(Q3_TASK_PADDED, device=device) < Q3_TASK_ROWS
+    task_ok = real & (torch.rand(Q3_TASK_PADDED, generator=g, device=device)
+                      < Q3_TASK_KEPT_SHARE)
+    task_ids = torch.where(task_ok, torch.randint(0, Q3_TASK_GROUPS, (Q3_TASK_PADDED,),
+                                                  generator=g, device=device,
+                                                  dtype=torch.int32), -1)
+    task_price = torch.randint(0, 1 << 20, (Q3_TASK_PADDED,), generator=g, device=device)
+    cases["q3_task_sums"] = _segment_case(
+        task_ids, torch.where(task_ok, task_price, 0), Q3_TASK_GROUPS, rates)
+    cases["q3_task_counts"] = _segment_case(task_ids, task_ok.to(torch.int32),
+                                            Q3_TASK_GROUPS, rates)
+    return {"cases": cases, "launches": hash_cuda.launches["segment_sum"] - launched}
+
+
+def segment_alone(device="cuda"):
+    """The SegmentAgg timing by itself: builds the kernels, makes the plans
+    phase's q5 and q3 data and prints a ``segment_sum`` line.
+    ``python3 -c "import chip_smoke as c; c.segment_alone()"``."""
+    from spark_rapids_jni_tpu_torch.models import generate_q3_data, generate_q5_data
+
+    if device == "cuda":
+        build()
+    out = _segment_phases(device, generate_q5_data(sf=Q5_SF, seed=Q5_SEED),
+                          generate_q3_data(sf=Q3_SF, seed=Q3_SEED))
+    print(_nvidia_smi("name,power.limit", units=True))
+    print(json.dumps({"segment_sum": out}))
 
 
 def _unfused_device_only(b):
@@ -1806,8 +1891,8 @@ def time_plans(mesh, b):
     host pad and upload share; the unfused forms host to host; the
     device-only time of each CompiledPlan.fn (make_distributed_q5/q3 on the
     mesh, the q97 plan), of the decimal-columns step and of the unfused
-    bodies on inputs already on the card; and one SegmentAgg's index_add_
-    alone."""
+    bodies on inputs already on the card; and SegmentAgg's segment sum alone,
+    kernel against plain version."""
     from spark_rapids_jni_tpu_torch.models import make_distributed_q3, make_distributed_q5
     from spark_rapids_jni_tpu_torch.models.q3 import _dims, _facts, _q3_tables, q3_local_unfused
     from spark_rapids_jni_tpu_torch.models.q5 import _plan_and_tables, q5_local_unfused
@@ -1846,7 +1931,7 @@ def time_plans(mesh, b):
         host[part].update({k: device_only[name][k] for k in ("pad_s", "upload_s",
                                                               "upload_bytes")})
     return {"host_to_host": host, "device_only": device_only,
-            "segment_sum": _segment_phases(b)}
+            "segment_sum": _segment_phases(dev, b["q5"], b["q3"])}
 
 
 def plans(mesh, q97):
@@ -1891,15 +1976,15 @@ def plans(mesh, q97):
 GOV_TIGHT = 0.5  # the tight budget: this share of a run's working set
 GOV_REPS = 2  # calls of each governed run, each checked
 # run -> the kernel launches of one call, and no others
-GOV_LAUNCHES = {
+GOV_LAUNCHES = {  # a tight run's two pieces each launch what a default run does
     "q97_default": {"mm_hash_long": 1},  # one piece: the Exchange's partition_of
     "q97_tight": {"mm_hash_long": 2},  # two key-space pieces
-    "q5_default": {},
-    "q5_tight": {},
-    "q3_default": {},
-    "q3_tight": {},
-    "q3_columns_default": {},
-    "q3_columns_tight": {},
+    "q5_default": {"segment_sum": 18},  # six SegmentAgg sinks of three aggregates
+    "q5_tight": {"segment_sum": 36},
+    "q3_default": {"segment_sum": 2},  # sums and counts
+    "q3_tight": {"segment_sum": 4},
+    "q3_columns_default": {"segment_sum": 4},  # three limb sums and the counts
+    "q3_columns_tight": {"segment_sum": 8},
 }
 GOV_TASKS = {"q97": 97, "q5": 5, "q3": 3, "q3_columns": 33}  # query -> its task id
 MONTE_CARLO = dict(n_tasks=16, n_threads=8, n_shuffle_threads=2, budget_bytes=64 << 20,
@@ -4294,7 +4379,8 @@ def config5_path():
 def check_config5(counts, line, buckets, dirs):
     """q97's counts and rows equal the JAX package's SF10 answers, q5's 40
     rows, every query verified by its oracle, every bucket run on the card
-    (mm_hash_long once each, no other kernel), and every spill file and
+    (mm_hash_long once each), q5's and q3's plans through srt_segment_sum,
+    no other kernel, and every spill file and
     directory gone."""
     import os
 
@@ -4310,8 +4396,9 @@ def check_config5(counts, line, buckets, dirs):
     if bad:
         raise AssertionError(f"config 5: {bad} not verified against their oracles")
     runs = len(buckets)
-    want = {k: (runs if k == "mm_hash_long" else 0) for k in counts}
-    if counts != want or runs != C5_BUCKETS + q97["streamed"]["bucket_splits"]:
+    want = {k: (runs if k == "mm_hash_long" else 0) for k in counts if k != "segment_sum"}
+    if {k: v for k, v in counts.items() if k != "segment_sum"} != want \
+            or counts["segment_sum"] < 1 or runs != C5_BUCKETS + q97["streamed"]["bucket_splits"]:
         raise AssertionError(f"config 5 launched {counts} over {runs} q97 bucket runs")
     left = [(d, names) for d, names in dirs if names or os.path.exists(d)]
     if left:
@@ -5076,7 +5163,8 @@ def observability(mesh, q97, json_col, device="cuda"):
 SEAM_SEED = 20  # numpy seed of the step's batch and of the q97 and q3 tables
 SEAM_ROWS = 1 << 20  # rows of the flagship step's batch
 SEAM_Q97_SF, SEAM_Q3_SF = 0.1, 5.0  # 280,000 rows per q97 fact table, 600,000 of q3
-SEAM_LAUNCHES = {"xx_hash_fixed8": 2, "mm_hash_long": 8}  # two steps, two q97 calls
+# two steps, two q97 calls, two q3 decimal-columns calls of four segment sums
+SEAM_LAUNCHES = {"xx_hash_fixed8": 2, "mm_hash_long": 8, "segment_sum": 8}
 
 
 def _seam_calls(mesh, cfg, device):
@@ -6369,7 +6457,8 @@ def multihost_phase(q97, device=None):
             raise AssertionError(f"phase 23 rank {r['rank']}: monte-carlo {mc}")
         if r["summary"]["process_count"] != world or r["multihost"] != (world > 1):
             raise AssertionError(f"phase 23 rank {r['rank']}: {r['summary']}")
-        if any(v for k, v in r["launches"].items() if k != "mm_hash_long"):
+        if any(v for k, v in r["launches"].items() if k not in ("mm_hash_long", "segment_sum")) \
+                or (device is None) != (r["launches"]["segment_sum"] > 0):
             raise AssertionError(f"phase 23 rank {r['rank']} launched {r['launches']}")
     lines = [_without_timing(r["lines"]) for r in ranks]
     if any(line != lines[0] for line in lines):
@@ -6476,38 +6565,38 @@ def main() -> int:
         lap("plans")
         gov_counts = governed(mesh, q97, gp)
         lap("governed")
-    path_counts = [counts, col_counts, dist_counts, plan_counts, gov_counts]
+    path_counts = {"step": counts, "column_hash": col_counts, "distributed": dist_counts,
+                   "plans": plan_counts, "governed": gov_counts}
     for name, phase in (("bloom", bloom), ("decimal", decimal),
                         ("rows", lambda: jcudf_rows(rates)), ("casts", lambda: casts(rates))):
-        path_counts.append(phase())
+        path_counts[name] = phase()
         lap(name)
-    order_counts, q67 = order(gp)
-    path_counts.append(order_counts)
+    path_counts["order"], q67 = order(gp)
     lap("order")
-    json_counts, json_head = json_phase(rates)
-    path_counts.append(json_counts)
+    path_counts["json"], json_head = json_phase(rates)
     lap("json")
-    path_counts.append(config5())
+    path_counts["config5"] = config5()
     lap("config5")
-    path_counts.append(ops_tail(rates))
+    path_counts["ops_tail"] = ops_tail(rates)
     lap("ops_tail")
     cpu_seams = seams_on_cpu(cfg)
     with one_rank_mesh("cuda") as mesh:
-        path_counts.append(observability(mesh, q97, json_head))
-        path_counts.append(obs_seams(mesh, cfg, cpu_seams))
+        path_counts["observability"] = observability(mesh, q97, json_head)
+        path_counts["seams"] = obs_seams(mesh, cfg, cpu_seams)
         lap("observability")
-        serve_counts, direct = serve_phase(mesh, q97, gp, json_head)
-        path_counts.append(serve_counts)
+        path_counts["serve"], direct = serve_phase(mesh, q97, gp, json_head)
     lap("serve")
-    path_counts.append(supervisor_phase(q97, q67["want"], q67["tables"], direct))
+    path_counts["supervisor"] = supervisor_phase(q97, q67["want"], q67["tables"], direct)
     lap("supervisor")
-    path_counts.append(multihost_phase(q97))
+    path_counts["multihost"] = multihost_phase(q97)
     lap("multihost")
     print(json.dumps({"phase_seconds": seconds, "total": sum(seconds.values())}))
     for row in rows:  # the main path is now all eighteen paths: their launches add up
-        row["launches"] = sum(c[row["name"]] for c in path_counts)
+        row["launches"] = sum(c[row["name"]] for c in path_counts.values())
+    segment_sums = {path: c["segment_sum"] for path, c in path_counts.items() if c["segment_sum"]}
     print(_nvidia_smi("name,power.limit", units=True))
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "segment_sum_launches": {
+        "total": sum(segment_sums.values()), "per_path": segment_sums}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

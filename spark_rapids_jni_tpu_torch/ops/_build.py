@@ -1,23 +1,26 @@
 """Builds the port's CUDA kernels with nvcc and loads them with ctypes.
 
 The library is compiled on first use for ``sm_90a`` into ``build/kernels/``
-at the repository root, under a name keyed on the source's content, so an
-edited source is never served by a stale build.  Nothing here runs at import
-time: a machine without nvcc or a card can import every module.
+at the repository root, under a name keyed on the sources' content, so an
+edited source is never served by a stale build.  Threads that make their
+first kernel call at once build and load it once: :func:`library` holds a
+lock.  Nothing here runs at import time: a machine without nvcc or a card
+can import every module.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
+from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "hash_kernels.cu"
+SOURCES = (_PKG / "csrc" / "hash_kernels.cu", _PKG / "csrc" / "agg_kernels.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,6 +39,8 @@ _SIGNATURES = {
     "srt_mm_hash_bytes": (_P, _P, _P, _P, _U32, _P, _I64, _P),
     # (hi, lo, hash tensor or NULL, scalar hash, out, n, stream)
     "srt_mm_hash_decimal128": (_P, _P, _P, _U32, _P, _I64, _P),
+    # (ids, id bytes, values, value code, out, n, num_segments, stream)
+    "srt_segment_sum": (_P, ctypes.c_int, _P, ctypes.c_int, _P, _I64, _I64, _P),
 }
 
 #: nvcc's output of the build this process ran (ptxas register counts), or
@@ -56,19 +61,20 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libhash_kernels-{digest.hexdigest()[:16]}.so"
+    digest = hashlib.sha256(b"".join(src.read_bytes() for src in SOURCES)
+                            + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libsrt_kernels-{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless this exact source is already built."""
+    """Compile the kernels unless these exact sources are already built."""
     global build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -78,12 +84,21 @@ def build() -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=None)
+_lock = threading.Lock()
+_library: Optional[ctypes.CDLL] = None
+
+
 def library() -> ctypes.CDLL:
-    """The built kernel library, with every function's C signature declared."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    """The built kernel library, with every function's C signature declared:
+    built and loaded once, by the first caller, while the others wait."""
+    global _library
+    if _library is None:
+        with _lock:
+            if _library is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                _library = lib
+    return _library

@@ -47,8 +47,9 @@ XX_P3 = 0x165667B19E3779F9
 XX_P4 = 0x85EBCA77C2B2AE63
 XX_P5 = 0x27D4EB2F165667C5
 
-#: kernel launches per wrapper, counted only where a kernel is launched (under
-#: ``_launches_lock``: the serving engine launches from several worker threads)
+#: kernel launches per wrapper of the kernel library, this module's and
+#: ``agg_cuda.segment_sum``'s, counted only where a kernel is launched (under
+#: ``_launches_lock``: the serving engine and task threads launch at once)
 launches: Dict[str, int] = {
     "xx_hash_fixed8": 0,
     "mm_hash_long": 0,
@@ -57,6 +58,7 @@ launches: Dict[str, int] = {
     "mm_hash_strings": 0,
     "mm_hash_bytes": 0,
     "mm_hash_decimal128": 0,
+    "segment_sum": 0,
 }
 
 

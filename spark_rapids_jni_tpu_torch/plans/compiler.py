@@ -37,6 +37,7 @@ import torch.distributed as dist
 from spark_rapids_jni_tpu_torch import device as _device
 from spark_rapids_jni_tpu_torch.obs.phases import PhaseTimes
 from spark_rapids_jni_tpu_torch.obs.seam import COLLECTIVE, COMPILE, seam
+from spark_rapids_jni_tpu_torch.ops.agg_cuda import segment_sum
 from spark_rapids_jni_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_size
 from spark_rapids_jni_tpu_torch.parallel.shuffle import all_to_all_shuffle, partition_of
 from spark_rapids_jni_tpu_torch.plans import ir
@@ -77,18 +78,6 @@ def _dtype(name: str) -> torch.dtype:
     if name not in DTYPES:
         raise ValueError(f"unknown plan dtype {name!r}")
     return DTYPES[name]
-
-
-def segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """``jax.ops.segment_sum``: sums of ``values`` by segment id, where ids
-    outside ``[0, num_segments)`` are dropped (``index_add_`` would raise on
-    them): they go to one spare bucket past the end, which is cut off."""
-    if ids.dtype not in (torch.int32, torch.int64):
-        ids = ids.to(torch.int64)
-    ok = (ids >= 0) & (ids < num_segments)
-    out = torch.zeros((num_segments + 1,), dtype=values.dtype, device=values.device)
-    out.index_add_(0, torch.where(ok, ids, num_segments), values)
-    return out[:-1]
 
 
 # ---------------------------------------------------------------- expressions
@@ -253,7 +242,8 @@ def window_index(dim_sk: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
 def _emit_segment_agg(node: ir.SegmentAgg, ctx: _Ctx) -> Dict[str, object]:
     rows = _emit(node.child, ctx)
     # masked rows take id -1, which segment_sum drops like every id outside
-    # [0, num_segments): bit-identical to the JAX drop-bucket form
+    # [0, num_segments): bit-identical to the JAX drop-bucket form.  It is
+    # looked up here, as this module's global, on every call.
     ids = torch.where(rows.mask, _eval(node.key, rows.cols), -1)
     out = {}
     for name, value_expr, dtype in node.aggs:
