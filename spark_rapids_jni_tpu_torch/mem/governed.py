@@ -267,8 +267,6 @@ def run_with_split_retry(
     grow: Optional[Callable[[Any], Any]] = None,
     max_split_depth: int = 8,
     max_grows: int = 8,
-    initial_split_depth: int = 0,
-    on_retry: Optional[Callable[[int], None]] = None,
     group: Optional[dist.ProcessGroup] = None,
 ) -> Any:
     """Process ``batch`` under the arbiter's retry protocol.
@@ -286,13 +284,6 @@ def run_with_split_retry(
     ``grow(piece)`` (typically doubling the shuffle capacity), with the
     reservation recomputed for the bigger buffers.
 
-    ``initial_split_depth`` pre-splits the batch BEFORE the first attempt
-    (the adaptive controller's pre-emptive split sizing: a class whose
-    history shows SplitAndRetryOOM skips the doomed full-size attempt and
-    its blocked/retry churn).  Pieces start at that depth, so the
-    ``max_split_depth`` cap covers pre-splits + reactive splits together.
-    ``on_retry(count)`` is forwarded to every piece's retry bracket.
-
     ``group`` is the process group of the ranks that run ``batch`` together
     (their collectives span it).  With a group every admission outcome is
     agreed across its ranks (:func:`attempt_once`), and so is the choice
@@ -300,31 +291,18 @@ def run_with_split_retry(
     and grows in step and none enters a collective alone.  Without one
     (the default) the driver is the JAX package's, line for line.
 
-    While a profiler capture runs, each ``split`` call, pre-split or
-    reactive, is the span ``srt.gov.split``.
+    While a profiler capture runs, each ``split`` call is the span
+    ``srt.gov.split``.
     """
     gov = budget.gov
     results: List[Any] = []
     # depth-first work list of (piece, depth, grows) keeps combine() order ==
     # input order
     work: List[tuple] = [(batch, 0, 0)]
-    for _ in range(max(0, min(initial_split_depth, max_split_depth))):
-        nxt: List[tuple] = []
-        for piece, depth, grows in work:
-            with trace_range("srt.gov.split"):
-                parts = list(split(piece))
-            if len(parts) <= 1:  # not splittable further: keep as-is
-                nxt.append((piece, depth, grows))
-            else:
-                nxt.extend((p, depth + 1, grows) for p in parts)
-        if len(nxt) == len(work):
-            break  # nothing split this round; deeper rounds won't either
-        work = nxt
     while work:
         piece, depth, grows = work.pop(0)
         try:
-            results.append(_attempt(gov, budget, piece, nbytes_of, run,
-                                    on_retry=on_retry, group=group))
+            results.append(_attempt(gov, budget, piece, nbytes_of, run, group=group))
             continue
         except ShuffleCapacityExceeded:
             if grow is None or grows >= max_grows:

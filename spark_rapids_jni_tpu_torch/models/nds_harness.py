@@ -21,7 +21,9 @@ joins their group through ``parallel.multihost.initialize`` and runs over
         --sf 10 --verify
 
 Every rank generates the same tables from ``--seed`` and runs its own data
-block of each query (``plans.plan_inputs``); every rank prints the line, with
+block of each query, which ``plans.upload_inputs`` lays out on its device
+(``plans.pad_tables`` + ``plans.plan_inputs`` define that layout and are its
+oracle); every rank prints the line, with
 ``"ndev"`` the world size.  Streamed, every rank stages the buckets in a
 temporary directory of its own and walks them in the same order, its host
 reservations agreed over the data axis, so the ranks split the same buckets

@@ -302,8 +302,10 @@ def q5_rollup(per_channel: Dict[str, ChannelPartials],
 def make_distributed_q5(mesh, data: Q5Data):
     """The executor of distributed q5 over ``mesh``'s data axis: the
     :class:`plans.cache.CompiledPlan` for ``data``'s geometry and batch
-    bucket.  Its ``fn`` runs on each rank over that rank's flat data shards
-    (``plans.runtime.plan_inputs``); facts are sharded over ``data``, the
+    bucket.  Its ``fn`` runs on each rank over that rank's flat data shards,
+    which ``plans.runtime.upload_inputs`` lays out on the device
+    (``pad_tables`` + ``plan_inputs`` define that layout and are its
+    oracle); facts are sharded over ``data``, the
     date dim replicated, the partial vectors summed.  Same-geometry data
     returns the IDENTICAL cached object, with O(1) host work on a hit: the
     key derives from lengths and dtypes alone."""

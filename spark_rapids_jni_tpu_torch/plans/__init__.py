@@ -43,13 +43,10 @@ from spark_rapids_jni_tpu_torch.plans.runtime import (
     input_signature_raw,
     pad_tables,
     plan_inputs,
-    plan_retry_stats,
     plan_upload_stats,
     plan_working_set_bytes,
-    reset_plan_retry_stats,
     run_governed_plan,
     split_scan_tables,
-    suggested_presplit_depth,
     upload_inputs,
 )
 
@@ -81,12 +78,9 @@ __all__ = [
     "input_signature_raw",
     "pad_tables",
     "plan_inputs",
-    "plan_retry_stats",
     "plan_working_set_bytes",
-    "reset_plan_retry_stats",
     "run_governed_plan",
     "split_scan_tables",
-    "suggested_presplit_depth",
     "plan_upload_stats",
     "upload_inputs",
 ]

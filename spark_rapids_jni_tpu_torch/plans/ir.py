@@ -387,7 +387,7 @@ def walk(plan: Plan) -> list:
 def scan_tables(plan: Plan) -> Tuple[Scan, ...]:
     """Distinct Scan nodes, ordered by table name (the executor's stable
     argument order).  Cached — plans are immutable values and this runs
-    on the per-request hot path (execute_plan + pad_tables)."""
+    on the per-request hot path (execute_plan + upload_inputs)."""
     seen = {}
     for n in walk(plan):
         if isinstance(n, Scan):

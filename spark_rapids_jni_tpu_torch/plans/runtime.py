@@ -6,7 +6,8 @@ memory arbiter: RetryOOM re-runs the plan on the same batch, SplitAndRetryOOM
 halves every scan table and runs the plan per half (partials combine by
 addition), and one flight-recorder task brackets the plan.  Under a mesh the
 admission outcome is agreed across the data axis, so every rank retries and
-splits together.
+splits together.  Splits are reactive only: every call starts at full size,
+and nothing of one call's retries carries to the next.
 
 Upload discipline: the executor takes each scan table at the dp-aligned
 pow2-quantized length (``parallel.shuffle.quantized_rows`` -- the bucket
@@ -66,8 +67,7 @@ from spark_rapids_jni_tpu_torch.plans.compiler import (
 
 __all__ = ["pad_tables", "plan_working_set_bytes", "execute_plan", "run_governed_plan",
            "split_scan_tables", "combine_outputs", "input_signature_raw",
-           "compiled_plan_for", "plan_inputs", "upload_inputs", "plan_retry_stats",
-           "suggested_presplit_depth", "reset_plan_retry_stats", "plan_upload_stats",
+           "compiled_plan_for", "plan_inputs", "upload_inputs", "plan_upload_stats",
            "reset_plan_upload_stats", "PHASES", "STAGING_CHUNK_BYTES", "STAGING_CHUNKS"]
 
 Tables = Dict[str, Dict[str, np.ndarray]]
@@ -85,101 +85,6 @@ PHASES = PhaseTimes("upload", "launch", name="plan")
 #: chunks of STAGING_CHUNK_BYTES, allocated on its first such upload
 STAGING_CHUNK_BYTES = 64 << 20
 STAGING_CHUNKS = 2
-
-
-# --------------------------------------------------------------------------
-# per-plan retry statistics (adaptive admission)
-#
-# Every governed plan execution records its retry/split history per PLAN
-# NAME — the request-class granularity the admission controller steers on.
-# ``suggested_presplit_depth`` turns that history into a pre-emptive split
-# depth: a plan whose recent runs SplitAndRetried starts its next run
-# already split, skipping the doomed full-size attempt (and its blocked
-# windows).  The hint DECAYS — one depth level per ``_PRESPLIT_DECAY_S``
-# without a new split — so a transient pressure episode doesn't pin small
-# pieces forever.  Gated on the serve_adaptive flag (and the controller
-# kill switch), so static configurations never pre-split.
-# --------------------------------------------------------------------------
-
-_PRESPLIT_DECAY_S = 30.0
-_STATS_LOCK = threading.Lock()
-_PLAN_STATS: Dict[str, dict] = {}
-
-
-def _stats_entry(name: str) -> dict:
-    st = _PLAN_STATS.get(name)
-    if st is None:
-        st = _PLAN_STATS[name] = {
-            "runs": 0, "retries": 0, "split_retries": 0,
-            "presplit_depth": 0, "last_split_t": 0.0,
-        }
-    return st
-
-
-def _record_plan_retry(name: str) -> None:
-    with _STATS_LOCK:
-        _stats_entry(name)["retries"] += 1
-
-
-def _note_plan_run(name: str, presplit: int, reactive_splits: int,
-                   max_depth: int) -> None:
-    """Record one completed run: the observed total depth (pre-splits plus
-    the depth implied by REACTIVE split events — pre-split invocations of
-    the split callback are excluded, or the hint could never decay)
-    becomes the new hint when it exceeds the decayed current one."""
-    observed = presplit
-    if reactive_splits > 0:
-        observed += max(1, (reactive_splits + 1).bit_length() - 1)
-    now = time.monotonic()
-    with _STATS_LOCK:
-        st = _stats_entry(name)
-        st["runs"] += 1
-        if reactive_splits > 0:
-            st["split_retries"] += reactive_splits
-            st["last_split_t"] = now
-        # collapse the stored hint to its decayed value first, so a long-
-        # faded episode doesn't resurrect at full depth on the next split
-        st["presplit_depth"] = min(
-            max(observed, _decayed_depth(st, now)), max_depth)
-
-
-def _decayed_depth(st: dict, now: float) -> int:
-    if st["presplit_depth"] <= 0 or st["last_split_t"] <= 0.0:
-        return 0
-    faded = int((now - st["last_split_t"]) / _PRESPLIT_DECAY_S)
-    return max(0, st["presplit_depth"] - faded)
-
-
-def plan_retry_stats() -> Dict[str, dict]:
-    """Per-plan retry/split history (non-destructive copy), with the
-    decayed ``suggested_depth`` the next run would start at."""
-    now = time.monotonic()
-    with _STATS_LOCK:
-        return {name: dict(st, suggested_depth=_decayed_depth(st, now))
-                for name, st in _PLAN_STATS.items()}
-
-
-def suggested_presplit_depth(name: str, max_depth: int = 8) -> int:
-    """Pre-emptive split depth for the next run of plan ``name`` (0 =
-    attempt full size).  Returns 0 unless adaptive admission is enabled
-    AND the kill switch is clear — the static path must stay untouched."""
-    if not config.get("serve_adaptive") or config.get(
-            "serve_controller_freeze"):
-        return 0
-    now = time.monotonic()
-    with _STATS_LOCK:
-        st = _PLAN_STATS.get(name)
-        if st is None:
-            return 0
-        return min(_decayed_depth(st, now), max_depth)
-
-
-def reset_plan_retry_stats() -> None:
-    with _STATS_LOCK:
-        _PLAN_STATS.clear()
-
-
-_flight.register_telemetry_source("plan_retry", plan_retry_stats)
 
 
 def _dp(mesh) -> int:
@@ -565,7 +470,8 @@ def run_governed_plan(
     One flight-recorder task spans the plan.  A local plan (``mesh`` None)
     runs on ``device``, the card unless the caller asks for the CPU; under a
     mesh every rank calls this with the same host tables, and the admission
-    outcome and the adaptive pre-split depth are agreed over the data axis.
+    outcome is agreed over the data axis.  Every call starts at full size: a
+    split follows only an admission that refused the piece.
 
     With the ``plan_optimizer`` flag set, the stats of ``tables`` are
     recorded (models/tables.py) and the plan is rewritten first
@@ -575,7 +481,6 @@ def run_governed_plan(
     a launch, and a computed result is stored after the bracket.
     """
     from spark_rapids_jni_tpu_torch.mem.governed import (
-        agreed_outcome,
         default_device_budget,
         run_with_split_retry,
         task_context,
@@ -615,47 +520,18 @@ def run_governed_plan(
     # silently splits into wrong answers
     max_split_depth = 0 if ir.order_sink(plan) is not None else 8
 
-    # plan-granularity adaptive presplit: this request class's recent
-    # retry history decides whether to skip the full-size attempt (0 under
-    # static config / kill switch).  Each rank keeps its own history and
-    # clock, so under a mesh the ranks take the deepest of their hints:
-    # a rank that ran a different number of pieces would be left alone in
-    # a collective.
-    presplit = suggested_presplit_depth(plan.name, max_split_depth)
-    if group is not None:
-        presplit = agreed_outcome(presplit, group)
-    inline_splits = [0]
-    attempted = [False]  # flips at the first run attempt: split() calls
-    # before it are the pre-split phase (NOT reactive pressure -- counting
-    # them would pin the hint against decay)
-
-    def split_counted(t):
-        if attempted[0]:
-            inline_splits[0] += 1
-        return split_scan_tables(t, scans)
-
-    def run(piece: Tables):
-        attempted[0] = True
-        return execute_plan(mesh, plan, piece, device=device)
-
-    def on_retry(_count: int) -> None:
-        _record_plan_retry(plan.name)
-
     ctx = (task_context(budget.gov, task_id) if manage_task
            else contextlib.nullcontext())
     with ctx:
         out = run_with_split_retry(
             budget, tables,
             nbytes_of=lambda t: plan_working_set_bytes(plan, t, dp),
-            run=run,
-            split=split_counted,
+            run=lambda piece: execute_plan(mesh, plan, piece, device=device),
+            split=lambda t: split_scan_tables(t, scans),
             combine=combine_outputs,
             max_split_depth=max_split_depth,
-            initial_split_depth=presplit,
-            on_retry=on_retry,
             group=group,
         )
-    _note_plan_run(plan.name, presplit, inline_splits[0], max_split_depth)
     if ckey is not None:
         from spark_rapids_jni_tpu_torch.plans.rcache import result_cache
 

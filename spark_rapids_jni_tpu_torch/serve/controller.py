@@ -29,8 +29,9 @@ One daemon thread ticks every ``serve_controller_period_s``.  Each tick:
    - priority aging (starved sessions ratchet upward via
      ``AdmissionQueue.age_sessions`` + ``Session.set_age_boost``),
    - pre-emptive split depth per request class
-     (``ServingEngine.set_presplit``; plan-granularity classes converge
-     through ``plans/runtime``'s own retry-stats registry).
+     (``ServingEngine.set_presplit``, the port's only pre-split; the
+     self-governed plan handlers ``q5`` and ``q3`` take none and split
+     reactively inside their own governed bracket).
 
 The controller is itself governed for robustness: every decision lands in
 the flight ring as an ``EV_CONTROL_*`` event (the decision ledger

@@ -11,7 +11,9 @@
   ``run_distributed_q3_columns`` with ``mesh=None`` on the CPU, under a
   budget that holds their working set and one that does not: rows equal to
   the JAX runners' under the same budget limit, and so are the split counts
-  (the arbiter's per-task metric, ``plan_retry_stats`` and the executions).
+  (the arbiter's per-task metric and the executions).
+- ``run_governed_plan`` keeps no retry history: after a call that split, the
+  next roomy call runs whole, with adaptive admission off or on.
 - The repairs of the port's mesh and plan device (a rank on the wrong card),
   with ``torch.cuda`` monkeypatched.
 """
@@ -52,9 +54,7 @@ from spark_rapids_jni_tpu_torch.plans import (
     pad_tables,
     plan_cache,
     plan_inputs,
-    plan_retry_stats,
     plan_working_set_bytes,
-    reset_plan_retry_stats,
     run_governed_plan,
 )
 from spark_rapids_jni_tpu_torch.plans import runtime
@@ -404,11 +404,9 @@ def _governed(pkg, query, data, limit):
     """Run ``query``'s governed runner of ``pkg`` ("port", mesh None on the
     CPU; "jax", mesh None or, for the columns runner, a one-device mesh)
     under a fresh budget of ``limit`` bytes; returns (rows, the arbiter's
-    split count, the plan's split_retries and runs, the executions)."""
+    split count, the executions)."""
     m = mem if pkg == "port" else jax_mem
     cache = plan_cache if pkg == "port" else jax_plan_cache
-    stats = runtime if pkg == "port" else jax_runtime
-    stats.reset_plan_retry_stats()
     g = m.MemoryGovernor(watchdog_period_s=0.02)
     try:
         budget = m.BudgetedResource(g, limit)
@@ -428,10 +426,7 @@ def _governed(pkg, query, data, limit):
                 rows = run(None, data, budget=budget, task_id=9, manage_task=False)
             splits = g.get_and_reset_num_split_retry(9)
         assert budget.used == 0
-        plan_stats = stats.plan_retry_stats().get(query, {})
-        return ([tuple(r) for r in rows], splits,
-                (plan_stats.get("split_retries"), plan_stats.get("runs")),
-                cache.stats()["execute_calls"] - before)
+        return ([tuple(r) for r in rows], splits, cache.stats()["execute_calls"] - before)
     finally:
         g.close()
 
@@ -444,7 +439,7 @@ def test_governed_runner_matches_jax(query, tight):
     got = _governed("port", query, data, limit)
     want = _governed("jax", query, data, limit)
     assert got == want
-    rows, splits, _, executions = got
+    rows, splits, executions = got
     assert rows, "the filter keeps no row at this size"
     if query == "q5":
         assert rows == [tuple(r) for r in q5.q5_local(data, device="cpu")]
@@ -516,13 +511,31 @@ def test_uploaded_dims_pass_through_with_the_jax_signature():
     assert any(t is up["item"]["brand"] for t in flat)
 
 
-def test_plan_retry_stats_are_a_flight_telemetry_source(gov):
-    reset_plan_retry_stats()
-    data = generate_q3_data(sf=0.01, seed=1)
-    q3.run_distributed_q3(None, data, budget=mem.BudgetedResource(gov, 1 << 30), device="cpu")
-    assert plan_retry_stats()["q3"]["runs"] == 1
-    assert flight.unified_snapshot()["plan_retry"]["q3"]["runs"] == 1
-    assert runtime.suggested_presplit_depth("q3") == 0  # static configuration
+@pytest.mark.parametrize("adaptive", [False, True], ids=["static", "serve_adaptive"])
+def test_a_split_leaves_no_presplit_for_the_next_call(gov, adaptive):
+    """A tight call on q3 splits three times (the whole batch, its first
+    half, then its second half once the first half's quarters ran); a roomy
+    call after it runs whole, in one execution, whether adaptive admission
+    is off or on: the plan runtime carries no retry history from one call
+    to the next."""
+    data = generate_q3_data(sf=0.05, seed=9)
+    plan = q3.q3_plan(**q3._geometry(data))
+    tables = q3._q3_tables(q3._facts(data), q3._dims(data))
+    tight = int(q3.q3_working_set_bytes(data) * 0.3)
+    got, outs = [], []
+    with config.override(serve_adaptive=adaptive), mem.task_context(gov, 9):
+        for limit in (tight, 1 << 30):
+            before = plan_cache.stats()["execute_calls"]
+            outs.append(run_governed_plan(None, plan, tables,
+                                          budget=mem.BudgetedResource(gov, limit),
+                                          task_id=9, manage_task=False, device="cpu"))
+            got.append((gov.get_and_reset_num_split_retry(9),
+                        plan_cache.stats()["execute_calls"] - before))
+    assert got == [(3, 4), (0, 1)]  # (arbiter splits, executions) per call
+    split, whole = outs
+    assert list(split) == list(whole)
+    for k in whole:
+        np.testing.assert_array_equal(split[k], whole[k])
 
 
 # --- the mesh's card and the plan's device --------------------------------------------------

@@ -16,7 +16,6 @@ it afresh, and the JAX references stay in the test modules.
 
 from __future__ import annotations
 
-import contextlib
 import datetime
 import os
 import time
@@ -28,7 +27,6 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from spark_rapids_jni_tpu_torch import columnar as tc
-from spark_rapids_jni_tpu_torch import config
 from spark_rapids_jni_tpu_torch.mem import BudgetedResource, MemoryGovernor, task_context
 from spark_rapids_jni_tpu_torch.mem.governed import ShuffleCapacityExceeded
 from spark_rapids_jni_tpu_torch.models import (
@@ -44,14 +42,11 @@ from spark_rapids_jni_tpu_torch.models import (
 from spark_rapids_jni_tpu_torch.models import q3 as q3_mod
 from spark_rapids_jni_tpu_torch.models import q5 as q5_mod
 from spark_rapids_jni_tpu_torch.models.tpcds import generate_q3_data, generate_q5_data
-from spark_rapids_jni_tpu_torch.plans import runtime as plan_runtime
 from spark_rapids_jni_tpu_torch.plans import (
     execute_plan,
     pad_tables,
     plan_cache,
     plan_inputs,
-    plan_retry_stats,
-    reset_plan_retry_stats,
 )
 from spark_rapids_jni_tpu_torch.parallel import (
     DATA_AXIS,
@@ -230,7 +225,6 @@ def _governed(mesh, limit: int, split_on_rank: int, run) -> Arrays:
     gov = MemoryGovernor(watchdog_period_s=0.02)
     try:
         budget = BudgetedResource(gov, limit)
-        reset_plan_retry_stats()
         before = plan_cache.stats()["execute_calls"]
         with task_context(gov, 1):
             if dist.get_rank() == split_on_rank:
@@ -258,26 +252,17 @@ def governed_q97(mesh, inputs: Arrays, limit: int, capacity: int,
 
 @_job
 def governed_q5(mesh, inputs: Arrays, limit: int, sf: float, seed: int,
-                split_on_rank: int = -1, presplit_on_rank: int = -1) -> Arrays:
+                split_on_rank: int = -1) -> Arrays:
     """run_distributed_q5 on q5 data regenerated from (sf, seed) under a
     budget of ``limit`` bytes (see :func:`_governed`): the rows' keys and
-    numbers, and the plan's retry stats.  With ``presplit_on_rank``, adaptive
-    admission is on and that rank alone remembers a recent split of q5, so
-    its own hint is a pre-split depth of 1 and every other rank's is 0."""
+    numbers."""
     data = generate_q5_data(sf=sf, seed=seed)
 
     def run(budget, task_id):
-        adaptive = (config.override(serve_adaptive=True) if presplit_on_rank >= 0
-                    else contextlib.nullcontext())
-        with adaptive:
-            if dist.get_rank() == presplit_on_rank:
-                plan_runtime._note_plan_run("q5", 0, 1, 8)
-            rows = run_distributed_q5(mesh, data, budget=budget, task_id=task_id,
-                                      manage_task=False)
-        st = plan_retry_stats()["q5"]
+        rows = run_distributed_q5(mesh, data, budget=budget, task_id=task_id,
+                                  manage_task=False)
         return {"keys": np.array([f"{r.channel}|{r.id}" for r in rows]),
-                "values": np.array([r[2:] for r in rows], np.int64),
-                "plan_stats": np.array([st["split_retries"], st["runs"]])}
+                "values": np.array([r[2:] for r in rows], np.int64)}
     return _governed(mesh, limit, split_on_rank, run)
 
 
