@@ -2146,12 +2146,13 @@ def check_governed(q97, gp, runs, answers, budgets, gov):
 def governed_kernel_check(q97, device="cuda"):
     """mm_hash_long against its plain version at a tight q97 run's shape: the
     packed keys of the first key-space piece's padded scans; with the host
-    seconds of that split (``split_q97_batch``, numpy) alone."""
-    from spark_rapids_jni_tpu_torch.models import Q97Batch, split_q97_batch
+    seconds of that split (``split_q97_batch``, native, library loaded) alone."""
+    from spark_rapids_jni_tpu_torch.models import Q97Batch, key_split, split_q97_batch
     from spark_rapids_jni_tpu_torch.models.q97 import _composite_key
     from spark_rapids_jni_tpu_torch.ops import hash_cuda
     from spark_rapids_jni_tpu_torch.parallel import quantized_rows
 
+    key_split.library()
     t0 = time.perf_counter()
     piece = split_q97_batch(Q97Batch(*q97["store"], *q97["catalog"],
                                      capacity=q97["capacity"]))[0]

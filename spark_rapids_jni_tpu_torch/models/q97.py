@@ -39,6 +39,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from spark_rapids_jni_tpu_torch.columnar.column import Column, next_pow2
 from spark_rapids_jni_tpu_torch.columnar.dtypes import INT8, INT64
+from spark_rapids_jni_tpu_torch.models import key_split
 from spark_rapids_jni_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_size
 from spark_rapids_jni_tpu_torch.parallel.shuffle import (
     ShuffleCrossing,
@@ -296,12 +297,6 @@ class Q97Batch:
         return len(self.s_cust) + len(self.c_cust)
 
 
-def _split_hash(cust: np.ndarray, item: np.ndarray) -> np.ndarray:
-    """Mixing hash of the composite key for key-space splitting (host)."""
-    packed = (cust.astype(np.int64) << 32) | (item.astype(np.int64) & 0xFFFFFFFF)
-    return packed.astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
-
-
 def split_q97_batch(batch: Q97Batch):
     """Split the *key space* in half (bit ``split_depth`` of a mixing hash).
 
@@ -310,20 +305,18 @@ def split_q97_batch(batch: Q97Batch):
     predicate), so the three presence counters sum across children.  Each
     child also halves the shuffle capacity: the exchange buffers dominate the
     working set, and a child carries about half the rows.
+
+    Each table is partitioned in native code (:mod:`.key_split`), which
+    releases the GIL; the children's rows keep their input order, side 0's
+    child first.
     """
-    bit = np.uint64(63 - batch.split_depth)
-    parts = []
-    for side in (0, 1):
-        sm = ((_split_hash(batch.s_cust, batch.s_item) >> bit) & 1) == side
-        cm = ((_split_hash(batch.c_cust, batch.c_item) >> bit) & 1) == side
-        parts.append(dataclasses.replace(
-            batch,
-            s_cust=batch.s_cust[sm], s_item=batch.s_item[sm],
-            c_cust=batch.c_cust[cm], c_item=batch.c_item[cm],
-            capacity=max(16, batch.capacity // 2),
-            split_depth=batch.split_depth + 1,
-        ))
-    return parts
+    bit = 63 - batch.split_depth
+    (s0, s1), (c0, c1) = (key_split.partition(batch.s_cust, batch.s_item, bit),
+                          key_split.partition(batch.c_cust, batch.c_item, bit))
+    return [dataclasses.replace(batch, s_cust=s[0], s_item=s[1], c_cust=c[0], c_item=c[1],
+                                capacity=max(16, batch.capacity // 2),
+                                split_depth=batch.split_depth + 1)
+            for s, c in ((s0, c0), (s1, c1))]
 
 
 def q97_working_set_bytes(batch: Q97Batch, dp: int) -> int:

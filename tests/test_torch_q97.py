@@ -9,6 +9,8 @@ must be equal (tolerance 0), and equal to the host oracles.
 """
 
 import dataclasses
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from spark_rapids_jni_tpu.columnar.dtypes import INT32 as JAX_INT32
 from spark_rapids_jni_tpu.models import q97 as jax_q97
 from spark_rapids_jni_tpu.models import tpcds as jax_tpcds
 from spark_rapids_jni_tpu.parallel import make_mesh as jax_make_mesh
+from spark_rapids_jni_tpu_torch.models import key_split
 from spark_rapids_jni_tpu_torch.models import q97 as q97
 from spark_rapids_jni_tpu_torch.models import tpcds
 from torch_mesh_ranks import run_ranks
@@ -32,6 +35,11 @@ SHAPES = [(8, 1), (4, 2)]
 def _gen(rng, n, n_cust, n_item):
     return (rng.randint(1, n_cust + 1, n).astype(np.int32),
             rng.randint(1, n_item + 1, n).astype(np.int32))
+
+
+def _full_range_keys(rng, n):
+    """(cust, item) int32 keys over the whole int32 range, negatives included."""
+    return tuple(rng.randint(-(1 << 31), 1 << 31, n, dtype=np.int32) for _ in range(2))
 
 
 def _counts(out):
@@ -363,6 +371,72 @@ def test_split_q97_batch_children_sum_to_parent():
     assert _counts(jcombined) == _counts(q97.combine_q97_outs(outs))
 
 
+def _assert_same_children(pieces, jpieces):
+    assert len(pieces) == len(jpieces)
+    for p, jp in zip(pieces, jpieces):
+        for f in ("s_cust", "s_item", "c_cust", "c_item"):
+            got, want = getattr(p, f), getattr(jp, f)
+            assert got.dtype == want.dtype == np.int32 and got.flags.c_contiguous, f
+            np.testing.assert_array_equal(got, want)
+        assert (p.capacity, p.split_depth) == (jp.capacity, jp.split_depth)
+
+
+# 0 rows, 1, odd, and more than one of the native split's row ranges (4 Mi rows)
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("depth", [0, 1, 7, 8])
+@pytest.mark.parametrize("rows", [0, 1, 999, (1 << 22) + 3])
+def test_native_split_matches_jax_split(rows, depth, levels):
+    rng = np.random.RandomState(rows % 1000 + depth)
+    store, catalog = _full_range_keys(rng, rows), _full_range_keys(rng, rows // 2 + 1)
+    pieces = [q97.Q97Batch(*store, *catalog, capacity=1 << 12, split_depth=depth)]
+    jpieces = [jax_q97.Q97Batch(*store, *catalog, capacity=1 << 12, split_depth=depth)]
+    for _ in range(levels):  # a second level splits the native split's children
+        pieces = [c for p in pieces for c in q97.split_q97_batch(p)]
+        jpieces = [c for p in jpieces for c in jax_q97.split_q97_batch(p)]
+    _assert_same_children(pieces, jpieces)
+    assert sum(p.rows for p in pieces) == len(store[0]) + len(catalog[0])
+
+
+def test_key_split_library_builds_once_under_four_concurrent_first_splits(monkeypatch,
+                                                                        tmp_path):
+    real_run, builds = key_split.subprocess.run, []
+
+    def slow_gxx(cmd, **kwargs):
+        builds.append(cmd[cmd.index("-o") + 1])
+        time.sleep(0.3)
+        return real_run(cmd, **kwargs)
+
+    monkeypatch.setattr(key_split, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(key_split.subprocess, "run", slow_gxx)
+    monkeypatch.setattr(key_split, "_library", None)
+
+    rng = np.random.RandomState(47)
+    tables = [(_full_range_keys(rng, 500 + k), _full_range_keys(rng, 300 + k)) for k in range(4)]
+    start = threading.Barrier(4)
+    got, errors = [None] * 4, []
+
+    def first_split(k):
+        start.wait()
+        try:
+            got[k] = q97.split_q97_batch(q97.Q97Batch(*tables[k][0], *tables[k][1],
+                                                      capacity=64))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_split, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert len(builds) == 1
+    assert list((tmp_path / "native").iterdir()) == [key_split.library_path()]
+    for k, (store, catalog) in enumerate(tables):
+        _assert_same_children(got[k], jax_q97.split_q97_batch(
+            jax_q97.Q97Batch(*store, *catalog, capacity=64)))
+
+
 def test_sizing_helpers_match_jax():
     rng = np.random.RandomState(43)
     for n_s, n_c, dp, cap in ((1000, 700, 1, 64), (1001, 3, 4, 1 << 10), (5, 0, 8, 16)):
@@ -377,8 +451,15 @@ def test_sizing_helpers_match_jax():
         want, wv = jax_q97._pad_to_multiple(store[0], dp)
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(gv, wv)
-    h = q97._split_hash(*_gen(rng, 64, 1 << 30, 1 << 30))
-    assert h.dtype == np.uint64
+    # the native split's side is the JAX package's split hash's bit, at every bit
+    cust, item = _full_range_keys(rng, 64)
+    h = jax_q97._split_hash(cust, item)
+    for bit in range(64):
+        ones = ((h >> np.uint64(bit)) & np.uint64(1)).astype(bool)
+        (c0, i0), (c1, i1) = key_split.partition(cust, item, bit)
+        for got, want in ((c0, cust[~ones]), (i0, item[~ones]), (c1, cust[ones]),
+                          (i1, item[ones])):
+            np.testing.assert_array_equal(got, want)
 
 
 # --- the TPC-DS generators ------------------------------------------------------------
